@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA GPU and check it.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failed check or exception ends the run with a
+non-zero exit code, and nothing falls back to the CPU:
+
+0. Device: refuse to run without CUDA; print the card's name and power
+   limit (nvidia-smi) and the torch and CUDA versions.
+1. Build the RrhoR kernel from quantpy_tpu_torch/csrc/ with nvcc (sm_90a).
+2. Kernel against its plain PyTorch version on identical CUDA inputs
+   (n = 1, 2, 4, 6 in float32, n = 2, 4 in float64, a ragged batch, 40
+   iterations), then both timed at the flagship shape (B = 16384, K = 1296,
+   D = 256, 60 iterations) with CUDA events.
+3. Main path: StateTomograph(GHZ(4)) on "cuda", a 10^4-shot proj-set
+   experiment, the RrhoR point estimate and a 16,384-resample bootstrap
+   interval (RrhoR-60), with the kernel's launch count and the device of
+   every tensor operation checked; then kernel and plain versions held
+   against each other on one fixed draw of counts.
+4. The bootstrap call's steady-state rate (best of 3) and its per-stage
+   times, beside the card's name and power limit.
+
+The line before the last is one JSON object describing the kernels; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+REPO = Path(__file__).resolve().parent
+
+N_QUBITS = 4
+N_SHOTS = 10_000
+N_POINTS = 16_384
+MLE_ITERS = 60
+CHECK_ITERS = 40
+TOL = {"float32": 5e-5, "float64": 1e-10}  # kernel vs plain, max |delta bloch|
+TRACE_TOL = 1e-6  # out[:, 0] == 1/d
+# Kernel path vs plain on one fixed draw of counts: hs distances per resample
+# in float64, and the interval's quantiles in float32, agree to HS_TOL. Per
+# resample in float32 both sit up to ~2e-5 from the float64 result (measured
+# on an H100 over four draws of 16,384), so there the bound is HS_TOL_F32,
+# and the kernel must be no farther from float64 than the plain version.
+HS_TOL = 1e-5
+HS_TOL_F32 = 5e-5
+MEDIAN_BAND = (1e-3, 2e-2)
+DEVICE = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Best of `reps` CUDA-event timings of fn(), in milliseconds."""
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def phase0_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
+    if not (REPO / "quantpy_tpu_torch" / "csrc" / "rhor_mle.cu").is_file():
+        raise SystemExit("chip_smoke: run from a checkout of the repository; no result")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card = smi[0].strip()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"device 0: {torch.cuda.get_device_name(0)}; cards visible: {torch.cuda.device_count()}")
+    return card
+
+
+def phase1_build():
+    from quantpy_tpu_torch.ops import _build, kernels
+
+    log(f"[1] building rhor_mle.cu with {_build.nvcc_path()}")
+    nvcc_version = subprocess.run(
+        [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()[-1]
+    log(f"    {nvcc_version}")
+    t0 = time.perf_counter()
+    kernels._library()
+    seconds = time.perf_counter() - t0
+    log(f"    build + load: {seconds:.2f} s")
+    for line in _build.build_log.get("rhor_mle", (0.0, ""))[1].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"    ptxas: {line.strip()}")
+
+
+def _problem(n_qubits, batch, dtype, povm, shots, seed):
+    """A real RrhoR problem on the card: counts drawn from GHZ(n) with the
+    given design, lin starts mixed 5% toward I/d, weighted POVM rows * d."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import state_core
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    povm_m = torch.as_tensor(qtt.generate_measurement_matrix(povm, n_qubits), dtype=dtype, device=dev)
+    n_meas = torch.full((povm_m.shape[0],), float(shots), dtype=dtype, device=dev)
+    truth = qtt.GHZ(n_qubits).bloch_tensor(dev, dtype)
+    counts = state_core.simulate_experiment(gen, povm_m, truth.expand(batch, -1), n_meas)
+    init = state_core.estimate_lin(counts, povm_m, n_meas)
+    d = 2**n_qubits
+    mixed = torch.zeros_like(init)
+    mixed[:, 0] = 1.0 / d
+    bloch0 = (0.95 * init + 0.05 * mixed).contiguous()
+    freq = counts.reshape(batch, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    w2 = (state_core.weighted_povm_flat(povm_m, n_meas) * d).contiguous()
+    return freq, bloch0, w2
+
+
+def phase2_kernel_vs_plain():
+    from quantpy_tpu_torch.ops import kernels
+
+    log("[2] kernel against plain on identical inputs")
+    cases = [
+        (1, torch.float32, "proj-set", 37),
+        (2, torch.float32, "proj-set", 37),
+        (4, torch.float32, "proj-set", 37),
+        (6, torch.float32, "sic", 13),
+        (2, torch.float64, "proj-set", 37),
+        (4, torch.float64, "proj-set", 37),
+    ]
+    worst_f32 = 0.0
+    for n, dtype, povm, batch in cases:
+        freq, bloch0, w2 = _problem(n, batch, dtype, povm, N_SHOTS, seed=100 + n)
+        out = kernels.rhor_mle(freq, bloch0, w2, CHECK_ITERS)
+        torch.cuda.synchronize()
+        ref = kernels.rhor_mle_reference(freq, bloch0, w2, CHECK_ITERS)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        trace_err = float((out[:, 0] - 1.0 / 2**n).abs().max())
+        name = str(dtype).removeprefix("torch.")
+        log(f"    n={n} {name:7s} {povm:8s} B={batch} K={w2.shape[0]} D={w2.shape[1]}: "
+            f"max|kernel-plain| {err:.3e} (limit {TOL[name]:.0e}), "
+            f"max|out0 - 1/d| {trace_err:.3e}")
+        if not (math.isfinite(err) and err <= TOL[name]):
+            raise AssertionError(f"kernel disagrees with plain at n={n} {name}: {err}")
+        if not trace_err <= TRACE_TOL:
+            raise AssertionError(f"kernel output off unit trace at n={n} {name}: {trace_err}")
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, err)
+
+    freq, bloch0, w2 = _problem(N_QUBITS, N_POINTS, torch.float32, "proj-set", N_SHOTS, seed=7)
+    plain = lambda: kernels.rhor_mle_reference(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
+    kernel = lambda: kernels.rhor_mle(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
+    err = float((kernel() - plain()).abs().max())
+    torch.cuda.synchronize()
+    # in turns on one card: plain, kernel, kernel, plain
+    plain_ms = cuda_ms(plain, 2)
+    kernel_ms = cuda_ms(kernel, 2)
+    kernel_ms = min(kernel_ms, cuda_ms(kernel, 2))
+    plain_ms = min(plain_ms, cuda_ms(plain, 2))
+    flops = 2.0 * MLE_ITERS * N_POINTS * (
+        2 * w2.shape[0] * w2.shape[1] + 6 * w2.shape[1] ** 2 + 8 * (2**N_QUBITS) ** 3
+    )
+    log(f"    flagship B={N_POINTS} K={w2.shape[0]} D={w2.shape[1]} iters={MLE_ITERS} f32: "
+        f"kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.2f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.2f} TFLOP/s), "
+        f"max|kernel-plain| {err:.3e}")
+    if not (math.isfinite(err) and err <= TOL["float32"]):
+        raise AssertionError(f"kernel disagrees with plain at the flagship shape: {err}")
+    return {"max_abs_err": max(worst_f32, err), "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+class DeviceAudit(TorchDispatchMode):
+    """Records every aten operation whose tensor inputs or outputs are not
+    on the card, other than copies between devices, aliases of uploaded
+    host arrays and 0-dim scalars."""
+
+    COPIES = {
+        "_to_copy", "copy_", "_copy_from", "lift_fresh", "lift_fresh_copy", "to",
+        "detach", "alias",
+    }
+
+    def __init__(self):
+        super().__init__()
+        self.n_ops = 0
+        self.off_device: set[str] = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        self.n_ops += 1
+        if name not in self.COPIES:
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if isinstance(t, torch.Tensor) and t.dim() > 0 and t.device.type != DEVICE:
+                    self.off_device.add(f"{name} ({t.device})")
+        return out
+
+
+def phase3_main_path(card):
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
+
+    log("[3] main path on cuda")
+    audit = DeviceAudit()
+    kernels.rhor_mle.launches = 0
+    t0 = time.perf_counter()
+    with audit:
+        tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=2026, device=DEVICE)
+        tmg.experiment(N_SHOTS, "proj-set")
+        est = tmg.point_estimate("mle-rhor")
+        interval = qtt.BootstrapStateInterval(
+            tmg, n_points=N_POINTS, method="mle-rhor", max_iter=MLE_ITERS, key=0
+        )
+        levels = (0.5, 0.9, 0.99)
+        dists, _ = interval(levels)
+        torch.cuda.synchronize()
+    launches = kernels.rhor_mle.launches
+    wall = time.perf_counter() - t0
+    infid = float(qtt.if_dst(est, qtt.GHZ(N_QUBITS)))
+    sample = interval.distances
+    median = float(np.median(sample))
+    log(f"    point estimate infidelity to GHZ-4: {infid:.3e}")
+    log(f"    bootstrap hs distances at {levels}: {[float(x) for x in dists]}; "
+        f"median {median:.4e}; first run {wall:.2f} s with the audit on")
+    log(f"    rhor_mle launches in the main path: {launches}; aten ops audited: {audit.n_ops}")
+    if sample.shape != (N_POINTS,) or not np.all(np.isfinite(sample)):
+        raise AssertionError("bootstrap distances are not finite or of the wrong shape")
+    if not MEDIAN_BAND[0] <= median <= MEDIAN_BAND[1]:
+        raise AssertionError(f"bootstrap median {median} outside {MEDIAN_BAND}")
+    if not 0 <= infid < 1e-2:
+        raise AssertionError(f"point estimate infidelity {infid} is implausible")
+    if launches < 1:
+        raise AssertionError("the main path never launched the rhor_mle kernel")
+    if audit.off_device:
+        raise AssertionError(f"operations off the card: {sorted(audit.off_device)}")
+
+    # kernel path against the plain version on one fixed draw of counts
+    gen = torch.Generator(device=tmg.device)
+    gen.manual_seed(99)
+    counts = tmg.simulate_batch(N_POINTS, state=est, generator=gen)
+    hs = {}
+    for dtype in (torch.float32, torch.float64):
+        bloch_est = est.bloch_tensor(tmg.device, dtype)
+        povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=tmg.device)
+        n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=tmg.device)
+        c = counts.to(dtype)
+        init = state_core.estimate_lin(c, povm, n_meas)
+        d = 2**N_QUBITS
+        mixed = torch.zeros_like(init)
+        mixed[:, 0] = 1.0 / d
+        freq = c.reshape(N_POINTS, -1)
+        freq = freq / freq.sum(-1, keepdim=True)
+        a2 = state_core.weighted_povm_flat(povm, n_meas) * d
+        via_kernel = state_core.estimate_mle_rhor(c, povm, n_meas, init, max_iter=MLE_ITERS)
+        via_plain = kernels.rhor_mle_reference(freq, 0.95 * init + 0.05 * mixed, a2, MLE_ITERS)
+        for name, blochs in (("kernel", via_kernel), ("plain", via_plain)):
+            hs[name, dtype] = bootstrap_core._distance_batch(
+                "hs", blochs, bloch_est, N_QUBITS).double()
+    f32, f64 = torch.float32, torch.float64
+
+    def worst(a, b):
+        return float((hs[a] - hs[b]).abs().max())
+
+    def quantiles(key):
+        return torch.quantile(hs[key], torch.tensor(levels, dtype=f64, device=tmg.device))
+
+    q_err = float((quantiles(("kernel", f32)) - quantiles(("plain", f32))).abs().max())
+    err64 = worst(("kernel", f64), ("plain", f64))
+    err32 = worst(("kernel", f32), ("plain", f32))
+    k_vs_64 = worst(("kernel", f32), ("plain", f64))
+    p_vs_64 = worst(("plain", f32), ("plain", f64))
+    log(f"    fixed draw, {N_POINTS} resamples, max|delta hs|: kernel-plain f64 {err64:.3e} "
+        f"(limit {HS_TOL:.0e}); kernel-plain f32 quantiles at {levels} {q_err:.3e} "
+        f"(limit {HS_TOL:.0e}); kernel-plain f32 per resample {err32:.3e} "
+        f"(limit {HS_TOL_F32:.0e}); to the f64 result: kernel f32 {k_vs_64:.3e}, "
+        f"plain f32 {p_vs_64:.3e}")
+    if not err64 <= HS_TOL:
+        raise AssertionError(f"kernel and plain hs distances disagree in float64: {err64}")
+    if not q_err <= HS_TOL:
+        raise AssertionError(f"kernel and plain hs quantiles disagree in float32: {q_err}")
+    if not err32 <= HS_TOL_F32:
+        raise AssertionError(f"kernel and plain hs distances disagree in float32: {err32}")
+    if not k_vs_64 <= 1.5 * p_vs_64:
+        raise AssertionError(
+            f"kernel float32 hs error {k_vs_64} exceeds 1.5x the plain version's {p_vs_64}")
+    return tmg, est, launches
+
+
+def phase4_rate(card, tmg, est):
+    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
+
+    log("[4] bootstrap rate (informational)")
+    dev, dtype = tmg.device, tmg.dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    bloch_est = est.bloch_tensor(dev, dtype)
+    povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=dev)
+    n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=dev)
+
+    def call():
+        return bootstrap_core.bootstrap_distances(
+            gen, bloch_est, povm, n_meas, n_points=N_POINTS, method="mle-rhor",
+            max_iter=MLE_ITERS,
+        )
+
+    call()
+    ms = cuda_ms(call, 3)
+    log(f"    bootstrap_distances, {N_POINTS} resamples, RrhoR-{MLE_ITERS}: best of 3 "
+        f"{ms:.3f} ms = {N_POINTS / ms * 1e3:.1f} resamples/s on {card}")
+
+    blochs = bloch_est.expand(N_POINTS, -1)
+    n = N_QUBITS
+    counts = state_core.simulate_experiment(gen, povm, blochs, n_meas)
+    raw = state_core.estimate_lin(counts, povm, n_meas, physical=False)
+    init = state_core.make_feasible_bloch(raw, n)
+    est_b = state_core.estimate_mle_rhor(counts, povm, n_meas, init, max_iter=MLE_ITERS)
+    stages = {
+        "simulate": lambda: state_core.simulate_experiment(gen, povm, blochs, n_meas),
+        "lin_solve": lambda: state_core.estimate_lin(counts, povm, n_meas, physical=False),
+        "eigh_clip": lambda: state_core.make_feasible_bloch(raw, n),
+        "rhor_kernel": lambda: state_core.estimate_mle_rhor(
+            counts, povm, n_meas, init, max_iter=MLE_ITERS),
+        "hs_distance": lambda: bootstrap_core._distance_batch("hs", est_b, bloch_est, n),
+    }
+    times = {name: cuda_ms(fn, 3) for name, fn in stages.items()}
+    log("    stages (ms, best of 3): " + json.dumps({k: round(v, 3) for k, v in times.items()}))
+    return ms
+
+
+def main() -> int:
+    card = phase0_device()
+    log(card)
+    sys.path.insert(0, str(REPO))
+    phase1_build()
+    measured = phase2_kernel_vs_plain()
+    tmg, est, launches = phase3_main_path(card)
+    phase4_rate(card, tmg, est)
+    kernels_line = {"kernels": [{
+        "name": "rhor_mle",
+        "route": "cuda",
+        "source": "quantpy_tpu_torch/csrc/rhor_mle.cu",
+        "replaces": "quantpy_tpu/ops/kernels.py:288",
+        "launches": launches,
+        "max_abs_err": measured["max_abs_err"],
+        "ms": measured["ms"],
+        "plain_ms": measured["plain_ms"],
+    }]}
+    print(json.dumps(kernels_line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

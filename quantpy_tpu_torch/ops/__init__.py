@@ -1,0 +1,34 @@
+"""Tensor operations: Pauli transforms, distances, sampling and the RrhoR
+kernel."""
+
+from .geometry import fidelity, hs_dst, if_dst, product, resolve_distance, trace_dst
+from .kernels import rhor_mle, rhor_mle_reference
+from .paulis import (
+    PTM_MAX_QUBITS,
+    bloch_to_matrix,
+    matrix_to_bloch,
+    n_qubits_from_dim,
+    pauli_transfer_matrix,
+    unvec,
+    vec,
+)
+from .sampling import sample_multinomial
+
+__all__ = [
+    "PTM_MAX_QUBITS",
+    "bloch_to_matrix",
+    "matrix_to_bloch",
+    "n_qubits_from_dim",
+    "pauli_transfer_matrix",
+    "vec",
+    "unvec",
+    "hs_dst",
+    "trace_dst",
+    "if_dst",
+    "fidelity",
+    "product",
+    "resolve_distance",
+    "sample_multinomial",
+    "rhor_mle",
+    "rhor_mle_reference",
+]

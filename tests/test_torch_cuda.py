@@ -1,0 +1,106 @@
+"""The RrhoR kernel on the card, against its plain version.
+
+Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
+and skip elsewhere. Run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: 5e-5 in float32 (that of tests/test_kernels.py; sums run in
+another order than cuBLAS's) and 1e-10 in float64.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import quantpy_tpu_torch as qtt  # noqa: E402
+from quantpy_tpu_torch.ops import kernels  # noqa: E402
+from quantpy_tpu_torch.tomography import state_core  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 5e-5, torch.float64: 1e-10}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _problem(device, n, batch, dtype, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    povm = torch.as_tensor(qtt.generate_measurement_matrix("proj-set", n), dtype=dtype, device=device)
+    n_meas = torch.full((povm.shape[0],), 2000.0, dtype=dtype, device=device)
+    truth = qtt.GHZ(n).bloch_tensor(device, dtype)
+    counts = state_core.simulate_experiment(gen, povm, truth.expand(batch, -1), n_meas)
+    return counts, povm, n_meas
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_kernel_matches_plain(cuda, n, dtype):
+    counts, povm, n_meas = _problem(cuda, n, 11, dtype, seed=n)
+    d = 2**n
+    init = state_core.estimate_lin(counts, povm, n_meas)
+    bloch0 = 0.95 * init
+    bloch0[:, 0] += 0.05 / d
+    freq = counts.reshape(11, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    w2 = (state_core.weighted_povm_flat(povm, n_meas) * d).contiguous()
+    before = kernels.rhor_mle.launches
+    out = kernels.rhor_mle(freq, bloch0.contiguous(), w2, n_iter=30)
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle.launches == before + 1
+    ref = kernels.rhor_mle_reference(freq, bloch0, w2, 30)
+    assert float((out - ref).abs().max()) <= TOL[dtype]
+    assert float((out[:, 0] - 1 / d).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("batch, n_iter", [(1, 7), (9, 0)])
+def test_kernel_single_resample_and_zero_iterations(cuda, batch, n_iter):
+    counts, povm, n_meas = _problem(cuda, 2, batch, torch.float32, seed=3)
+    freq = counts.reshape(batch, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    w2 = (state_core.weighted_povm_flat(povm, n_meas) * 4).contiguous()
+    bloch0 = torch.zeros(batch, 16, device=cuda)
+    bloch0[:, 0] = 0.25
+    out = kernels.rhor_mle(freq, bloch0, w2, n_iter=n_iter)
+    ref = kernels.rhor_mle_reference(freq, bloch0, w2, n_iter)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+def test_kernel_global_scratch_path(cuda):
+    """n = 5 proj-set does not fit in shared memory: the scratch path."""
+    counts, povm, n_meas = _problem(cuda, 5, 3, torch.float32, seed=5)
+    freq = counts.reshape(3, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    w2 = (state_core.weighted_povm_flat(povm, n_meas) * 32).contiguous()
+    init = state_core.estimate_lin(counts, povm, n_meas)
+    bloch0 = (0.95 * init).contiguous()
+    bloch0[:, 0] += 0.05 / 32
+    out = kernels.rhor_mle(freq, bloch0, w2, n_iter=10)
+    ref = kernels.rhor_mle_reference(freq, bloch0, w2, 10)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+def test_estimate_mle_rhor_goes_through_the_kernel(cuda):
+    counts, povm, n_meas = _problem(cuda, 2, 5, torch.float32, seed=9)
+    before = kernels.rhor_mle.launches
+    est = state_core.estimate(counts, povm, n_meas, method="mle-rhor", max_iter=40)
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle.launches == before + 1
+    assert est.device.type == "cuda" and est.shape == (5, 16)
+    assert bool(torch.isfinite(est).all())
+
+
+def test_kernel_raises_instead_of_falling_back(cuda):
+    freq = torch.full((2, 6), 1 / 6, device=cuda)
+    bloch0 = torch.zeros(2, 4, device=cuda)
+    w2 = torch.ones(6, 4, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.rhor_mle(freq, bloch0, w2.cpu(), n_iter=2)

@@ -10,18 +10,26 @@ non-zero exit code, and nothing falls back to the CPU:
 
 0. Device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi) and the torch and CUDA versions.
-1. Build the RrhoR kernel from quantpy_tpu_torch/csrc/ with nvcc (sm_90a).
-2. Kernel against its plain PyTorch version on identical CUDA inputs
+1. Build both RrhoR kernels from quantpy_tpu_torch/csrc/ with nvcc
+   (sm_90a), one nvcc per source, started together.
+2. Each kernel (rhor_mle, the lane kernel; rhor_mle_flat, the flat-matrix
+   kernel) against its plain PyTorch version on identical CUDA inputs
    (n = 1, 2, 4, 6 in float32, n = 2, 4 in float64, a ragged batch, 40
-   iterations), then both timed at the flagship shape (B = 16384, K = 1296,
-   D = 256, 60 iterations) with CUDA events.
+   iterations), the two plain versions against each other in float64,
+   then each kernel and its plain version timed in turns at the flagship
+   shape (B = 16384, K = 1296, D = 256, 60 iterations) with CUDA events.
 3. Main path: StateTomograph(GHZ(4)) on "cuda", a 10^4-shot proj-set
    experiment, the RrhoR point estimate and a 16,384-resample bootstrap
-   interval (RrhoR-60), with the kernel's launch count and the device of
+   interval (RrhoR-60), with the kernels' launch counts and the device of
    every tensor operation checked; then kernel and plain versions held
    against each other on one fixed draw of counts.
 4. The bootstrap call's steady-state rate (best of 3) and its per-stage
    times, beside the card's name and power limit.
+5. The flat kernel on the main path: the flagship bootstrap_distances call
+   with kernels.rhor_mle replaced by kernels.rhor_mle_flat (as bench.py
+   swaps the JAX kernels), launch counts and devices checked; flat and
+   lane kernels held against each other on one fixed draw of counts; the
+   rate of both variants, best of 3, in turns.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -29,11 +37,13 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,6 +59,7 @@ MLE_ITERS = 60
 CHECK_ITERS = 40
 TOL = {"float32": 5e-5, "float64": 1e-10}  # kernel vs plain, max |delta bloch|
 TRACE_TOL = 1e-6  # out[:, 0] == 1/d
+KERNELS = ("rhor_mle", "rhor_mle_flat")
 # Kernel path vs plain on one fixed draw of counts: hs distances per resample
 # in float64, and the interval's quantiles in float32, agree to HS_TOL. Per
 # resample in float32 both sit up to ~2e-5 from the float64 result (measured
@@ -81,7 +92,7 @@ def cuda_ms(fn, reps: int = 3) -> float:
 def phase0_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
-    if not (REPO / "quantpy_tpu_torch" / "csrc" / "rhor_mle.cu").is_file():
+    if not all((REPO / "quantpy_tpu_torch" / "csrc" / f"{k}.cu").is_file() for k in KERNELS):
         raise SystemExit("chip_smoke: run from a checkout of the repository; no result")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -96,18 +107,23 @@ def phase0_device():
 def phase1_build():
     from quantpy_tpu_torch.ops import _build, kernels
 
-    log(f"[1] building rhor_mle.cu with {_build.nvcc_path()}")
+    log(f"[1] building {', '.join(k + '.cu' for k in KERNELS)} with {_build.nvcc_path()}")
     nvcc_version = subprocess.run(
         [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[-1]
     log(f"    {nvcc_version}")
     t0 = time.perf_counter()
-    kernels._library()
-    seconds = time.perf_counter() - t0
-    log(f"    build + load: {seconds:.2f} s")
-    for line in _build.build_log.get("rhor_mle", (0.0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"    ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    for name in KERNELS:
+        kernels._library(name)
+    log(f"    build + load of both: {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        seconds, output = _build.build_log.get(name, (0.0, ""))
+        log(f"    {name}: nvcc {seconds:.2f} s")
+        for line in output.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"    ptxas: {line.strip()}")
 
 
 def _problem(n_qubits, batch, dtype, povm, shots, seed):
@@ -134,10 +150,24 @@ def _problem(n_qubits, batch, dtype, povm, shots, seed):
     return freq, bloch0, w2
 
 
+def _in_turns(kernel, plain, reps):
+    """Best CUDA-event times (kernel_ms, plain_ms) of `reps` calls each, in
+    turns on one card: plain, kernel, kernel, plain."""
+    plain_ms = cuda_ms(plain, reps)
+    kernel_ms = cuda_ms(kernel, reps)
+    kernel_ms = min(kernel_ms, cuda_ms(kernel, reps))
+    plain_ms = min(plain_ms, cuda_ms(plain, reps))
+    return kernel_ms, plain_ms
+
+
 def phase2_kernel_vs_plain():
     from quantpy_tpu_torch.ops import kernels
 
-    log("[2] kernel against plain on identical inputs")
+    log("[2] kernels against their plain versions on identical inputs")
+    pairs = {
+        "rhor_mle": (kernels.rhor_mle, kernels.rhor_mle_reference),
+        "rhor_mle_flat": (kernels.rhor_mle_flat, kernels.rhor_mle_flat_reference),
+    }
     cases = [
         (1, torch.float32, "proj-set", 37),
         (2, torch.float32, "proj-set", 37),
@@ -146,46 +176,59 @@ def phase2_kernel_vs_plain():
         (2, torch.float64, "proj-set", 37),
         (4, torch.float64, "proj-set", 37),
     ]
-    worst_f32 = 0.0
+    worst_f32 = dict.fromkeys(pairs, 0.0)
     for n, dtype, povm, batch in cases:
         freq, bloch0, w2 = _problem(n, batch, dtype, povm, N_SHOTS, seed=100 + n)
-        out = kernels.rhor_mle(freq, bloch0, w2, CHECK_ITERS)
-        torch.cuda.synchronize()
-        ref = kernels.rhor_mle_reference(freq, bloch0, w2, CHECK_ITERS)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        trace_err = float((out[:, 0] - 1.0 / 2**n).abs().max())
         name = str(dtype).removeprefix("torch.")
-        log(f"    n={n} {name:7s} {povm:8s} B={batch} K={w2.shape[0]} D={w2.shape[1]}: "
-            f"max|kernel-plain| {err:.3e} (limit {TOL[name]:.0e}), "
-            f"max|out0 - 1/d| {trace_err:.3e}")
-        if not (math.isfinite(err) and err <= TOL[name]):
-            raise AssertionError(f"kernel disagrees with plain at n={n} {name}: {err}")
-        if not trace_err <= TRACE_TOL:
-            raise AssertionError(f"kernel output off unit trace at n={n} {name}: {trace_err}")
-        if dtype == torch.float32:
-            worst_f32 = max(worst_f32, err)
+        for kname, (kernel, plain) in pairs.items():
+            out = kernel(freq, bloch0, w2, CHECK_ITERS)
+            torch.cuda.synchronize()
+            ref = plain(freq, bloch0, w2, CHECK_ITERS)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            trace_err = float((out[:, 0] - 1.0 / 2**n).abs().max())
+            log(f"    {kname:13s} n={n} {name:7s} {povm:8s} B={batch} K={w2.shape[0]} "
+                f"D={w2.shape[1]}: max|kernel-plain| {err:.3e} (limit {TOL[name]:.0e}), "
+                f"max|out0 - 1/d| {trace_err:.3e}")
+            if not (math.isfinite(err) and err <= TOL[name]):
+                raise AssertionError(f"{kname} disagrees with plain at n={n} {name}: {err}")
+            if not trace_err <= TRACE_TOL:
+                raise AssertionError(f"{kname} output off unit trace at n={n} {name}: {trace_err}")
+            if dtype == torch.float32:
+                worst_f32[kname] = max(worst_f32[kname], err)
 
-    freq, bloch0, w2 = _problem(N_QUBITS, N_POINTS, torch.float32, "proj-set", N_SHOTS, seed=7)
-    plain = lambda: kernels.rhor_mle_reference(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
-    kernel = lambda: kernels.rhor_mle(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
-    err = float((kernel() - plain()).abs().max())
-    torch.cuda.synchronize()
-    # in turns on one card: plain, kernel, kernel, plain
-    plain_ms = cuda_ms(plain, 2)
-    kernel_ms = cuda_ms(kernel, 2)
-    kernel_ms = min(kernel_ms, cuda_ms(kernel, 2))
-    plain_ms = min(plain_ms, cuda_ms(plain, 2))
-    flops = 2.0 * MLE_ITERS * N_POINTS * (
-        2 * w2.shape[0] * w2.shape[1] + 6 * w2.shape[1] ** 2 + 8 * (2**N_QUBITS) ** 3
-    )
-    log(f"    flagship B={N_POINTS} K={w2.shape[0]} D={w2.shape[1]} iters={MLE_ITERS} f32: "
-        f"kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.2f} TFLOP/s), "
-        f"plain {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.2f} TFLOP/s), "
-        f"max|kernel-plain| {err:.3e}")
-    if not (math.isfinite(err) and err <= TOL["float32"]):
-        raise AssertionError(f"kernel disagrees with plain at the flagship shape: {err}")
-    return {"max_abs_err": max(worst_f32, err), "ms": kernel_ms, "plain_ms": plain_ms}
+    # both plain versions run the same iterates in exact arithmetic
+    freq, bloch0, w2 = _problem(N_QUBITS, 37, torch.float64, "proj-set", N_SHOTS, seed=104)
+    err = float((kernels.rhor_mle_flat_reference(freq, bloch0, w2, CHECK_ITERS)
+                 - kernels.rhor_mle_reference(freq, bloch0, w2, CHECK_ITERS)).abs().max())
+    log(f"    flat plain vs lane plain, n={N_QUBITS} float64: max|delta| {err:.3e} "
+        f"(limit {TOL['float64']:.0e})")
+    if not err <= TOL["float64"]:
+        raise AssertionError(f"the flat and lane plain versions disagree in float64: {err}")
+
+    k, d2, d = w2.shape[0], w2.shape[1], 2**N_QUBITS
+    macs = {"rhor_mle": 2 * k * d2 + 6 * d2**2 + 8 * d**3, "rhor_mle_flat": 4 * k * d2 + 8 * d**3}
+    measured = {}
+    for dtype, reps in ((torch.float32, 2), (torch.float64, 1)):
+        name = str(dtype).removeprefix("torch.")
+        freq, bloch0, w2 = _problem(N_QUBITS, N_POINTS, dtype, "proj-set", N_SHOTS, seed=7)
+        for kname, (kernel, plain) in pairs.items():
+            run_plain = lambda: plain(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
+            run_kernel = lambda: kernel(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
+            err = float((run_kernel() - run_plain()).abs().max())
+            torch.cuda.synchronize()
+            kernel_ms, plain_ms = _in_turns(run_kernel, run_plain, reps)
+            flops = 2.0 * MLE_ITERS * N_POINTS * macs[kname]
+            log(f"    {kname} flagship B={N_POINTS} K={k} D={d2} iters={MLE_ITERS} {name}: "
+                f"kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.2f} TFLOP/s), "
+                f"plain {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.2f} TFLOP/s), "
+                f"max|kernel-plain| {err:.3e}")
+            if not (math.isfinite(err) and err <= TOL[name]):
+                raise AssertionError(f"{kname} disagrees with plain at the flagship shape: {err}")
+            if dtype == torch.float32:
+                measured[kname] = {"max_abs_err": max(worst_f32[kname], err),
+                                   "ms": kernel_ms, "plain_ms": plain_ms}
+    return measured
 
 
 class DeviceAudit(TorchDispatchMode):
@@ -224,6 +267,7 @@ def phase3_main_path(card):
     log("[3] main path on cuda")
     audit = DeviceAudit()
     kernels.rhor_mle.launches = 0
+    kernels.rhor_mle_flat.launches = 0
     t0 = time.perf_counter()
     with audit:
         tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=2026, device=DEVICE)
@@ -236,6 +280,7 @@ def phase3_main_path(card):
         dists, _ = interval(levels)
         torch.cuda.synchronize()
     launches = kernels.rhor_mle.launches
+    flat_launches = kernels.rhor_mle_flat.launches
     wall = time.perf_counter() - t0
     infid = float(qtt.if_dst(est, qtt.GHZ(N_QUBITS)))
     sample = interval.distances
@@ -243,7 +288,8 @@ def phase3_main_path(card):
     log(f"    point estimate infidelity to GHZ-4: {infid:.3e}")
     log(f"    bootstrap hs distances at {levels}: {[float(x) for x in dists]}; "
         f"median {median:.4e}; first run {wall:.2f} s with the audit on")
-    log(f"    rhor_mle launches in the main path: {launches}; aten ops audited: {audit.n_ops}")
+    log(f"    rhor_mle launches in the main path: {launches} (rhor_mle_flat: {flat_launches}); "
+        f"aten ops audited: {audit.n_ops}")
     if sample.shape != (N_POINTS,) or not np.all(np.isfinite(sample)):
         raise AssertionError("bootstrap distances are not finite or of the wrong shape")
     if not MEDIAN_BAND[0] <= median <= MEDIAN_BAND[1]:
@@ -252,6 +298,8 @@ def phase3_main_path(card):
         raise AssertionError(f"point estimate infidelity {infid} is implausible")
     if launches < 1:
         raise AssertionError("the main path never launched the rhor_mle kernel")
+    if flat_launches != 0:
+        raise AssertionError("the main path launched the flat kernel; it dispatches to rhor_mle")
     if audit.off_device:
         raise AssertionError(f"operations off the card: {sorted(audit.off_device)}")
 
@@ -348,6 +396,119 @@ def phase4_rate(card, tmg, est):
     return ms
 
 
+@contextlib.contextmanager
+def flat_kernel_on_main_path():
+    """Swap kernels.rhor_mle for kernels.rhor_mle_flat for one block (as
+    bench.py swaps the JAX kernels); yields the lane kernel's wrapper."""
+    from quantpy_tpu_torch.ops import kernels
+
+    lane = kernels.rhor_mle
+    kernels.rhor_mle = kernels.rhor_mle_flat
+    try:
+        yield lane
+    finally:
+        kernels.rhor_mle = lane
+
+
+def _fixed_draw_hs(tmg, est, seed):
+    """hs distances to `est` of one fixed draw of N_POINTS resamples,
+    estimated through state_core.estimate_mle_rhor in float32 and float64."""
+    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
+
+    gen = torch.Generator(device=tmg.device)
+    gen.manual_seed(seed)
+    counts = tmg.simulate_batch(N_POINTS, state=est, generator=gen)
+    hs = {}
+    for dtype in (torch.float32, torch.float64):
+        bloch_est = est.bloch_tensor(tmg.device, dtype)
+        povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=tmg.device)
+        n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=tmg.device)
+        c = counts.to(dtype)
+        init = state_core.estimate_lin(c, povm, n_meas)
+        blochs = state_core.estimate_mle_rhor(c, povm, n_meas, init, max_iter=MLE_ITERS)
+        hs[dtype] = bootstrap_core._distance_batch("hs", blochs, bloch_est, N_QUBITS).double()
+    return hs
+
+
+def phase5_flat_path(card, tmg, est):
+    import numpy as np
+
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import bootstrap_core
+
+    log("[5] flat kernel on the main path")
+    dev, dtype = tmg.device, tmg.dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bloch_est = est.bloch_tensor(dev, dtype)
+    povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=dev)
+    n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=dev)
+
+    def call():
+        return bootstrap_core.bootstrap_distances(
+            gen, bloch_est, povm, n_meas, n_points=N_POINTS, method="mle-rhor",
+            max_iter=MLE_ITERS,
+        )
+
+    audit = DeviceAudit()
+    kernels.rhor_mle.launches = 0
+    kernels.rhor_mle_flat.launches = 0
+    with flat_kernel_on_main_path() as lane:
+        with audit:
+            dists = call()
+            torch.cuda.synchronize()
+    flat_launches = kernels.rhor_mle_flat.launches
+    lane_launches = lane.launches
+    sample = dists.double().cpu().numpy()
+    median = float(np.median(sample))
+    log(f"    bootstrap_distances with the flat kernel: median hs {median:.4e}; "
+        f"rhor_mle_flat launches {flat_launches}, rhor_mle launches {lane_launches}; "
+        f"aten ops audited: {audit.n_ops}")
+    if sample.shape != (N_POINTS,) or not np.all(np.isfinite(sample)):
+        raise AssertionError("flat-path distances are not finite or of the wrong shape")
+    if not MEDIAN_BAND[0] <= median <= MEDIAN_BAND[1]:
+        raise AssertionError(f"flat-path bootstrap median {median} outside {MEDIAN_BAND}")
+    if flat_launches < 1:
+        raise AssertionError("the flat path never launched the rhor_mle_flat kernel")
+    if lane_launches != 0:
+        raise AssertionError(f"the flat path launched the lane kernel {lane_launches} times")
+    if audit.off_device:
+        raise AssertionError(f"operations off the card: {sorted(audit.off_device)}")
+
+    # flat kernel against the lane kernel on one fixed draw of counts
+    lane_hs = _fixed_draw_hs(tmg, est, seed=99)
+    with flat_kernel_on_main_path():
+        flat_hs = _fixed_draw_hs(tmg, est, seed=99)
+    f32, f64 = torch.float32, torch.float64
+    levels = torch.tensor((0.5, 0.9, 0.99), dtype=f64, device=dev)
+    q_flat = torch.quantile(flat_hs[f32], levels)
+    q_lane = torch.quantile(lane_hs[f32], levels)
+    q_err = float((q_flat - q_lane).abs().max())
+    err32 = float((flat_hs[f32] - lane_hs[f32]).abs().max())
+    err64 = float((flat_hs[f64] - lane_hs[f64]).abs().max())
+    log(f"    fixed draw, {N_POINTS} resamples: hs quantiles at {levels.tolist()} flat "
+        f"{q_flat.tolist()}, lane {q_lane.tolist()}; max|flat-lane| quantiles f32 "
+        f"{q_err:.3e} (limit {HS_TOL:.0e}), per resample f32 {err32:.3e} "
+        f"(limit {HS_TOL_F32:.0e}), f64 {err64:.3e} (limit {HS_TOL:.0e})")
+    if not q_err <= HS_TOL:
+        raise AssertionError(f"flat and lane hs quantiles disagree in float32: {q_err}")
+    if not err32 <= HS_TOL_F32:
+        raise AssertionError(f"flat and lane hs distances disagree in float32: {err32}")
+    if not err64 <= HS_TOL:
+        raise AssertionError(f"flat and lane hs distances disagree in float64: {err64}")
+
+    # the rate of both variants, best of 3, in turns
+    lane_ms = flat_ms = math.inf
+    for _ in range(3):
+        lane_ms = min(lane_ms, cuda_ms(call, 1))
+        with flat_kernel_on_main_path():
+            flat_ms = min(flat_ms, cuda_ms(call, 1))
+    log(f"    bootstrap_distances, {N_POINTS} resamples, RrhoR-{MLE_ITERS}, best of 3 in turns "
+        f"on {card}: flat kernel {flat_ms:.3f} ms = {N_POINTS / flat_ms * 1e3:.1f} resamples/s, "
+        f"lane kernel {lane_ms:.3f} ms = {N_POINTS / lane_ms * 1e3:.1f} resamples/s")
+    return flat_launches
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -356,16 +517,22 @@ def main() -> int:
     measured = phase2_kernel_vs_plain()
     tmg, est, launches = phase3_main_path(card)
     phase4_rate(card, tmg, est)
-    kernels_line = {"kernels": [{
-        "name": "rhor_mle",
-        "route": "cuda",
-        "source": "quantpy_tpu_torch/csrc/rhor_mle.cu",
-        "replaces": "quantpy_tpu/ops/kernels.py:288",
-        "launches": launches,
-        "max_abs_err": measured["max_abs_err"],
-        "ms": measured["ms"],
-        "plain_ms": measured["plain_ms"],
-    }]}
+    flat_launches = phase5_flat_path(card, tmg, est)
+    sources = {
+        "rhor_mle": ("quantpy_tpu/ops/kernels.py:288", launches),
+        "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:205", flat_launches),
+    }
+    kernels_line = {"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"quantpy_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": n_launches,
+            **measured[name],
+        }
+        for name, (replaces, n_launches) in sources.items()
+    ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

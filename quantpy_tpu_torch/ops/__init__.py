@@ -1,8 +1,8 @@
 """Tensor operations: Pauli transforms, distances, sampling and the RrhoR
-kernel."""
+kernels."""
 
 from .geometry import fidelity, hs_dst, if_dst, product, resolve_distance, trace_dst
-from .kernels import rhor_mle, rhor_mle_reference
+from .kernels import rhor_mle, rhor_mle_flat, rhor_mle_flat_reference, rhor_mle_reference
 from .paulis import (
     PTM_MAX_QUBITS,
     bloch_to_matrix,
@@ -31,4 +31,6 @@ __all__ = [
     "sample_multinomial",
     "rhor_mle",
     "rhor_mle_reference",
+    "rhor_mle_flat",
+    "rhor_mle_flat_reference",
 ]

@@ -1,14 +1,17 @@
-"""The fused RrhoR MLE kernel and its plain PyTorch version.
+"""The fused RrhoR MLE kernels and their plain PyTorch versions.
 
-`rhor_mle` runs `n_iter` fixed RrhoR iterations for a batch of resamples.
-On CUDA tensors it launches the hand-written kernel of
-`csrc/rhor_mle.cu` (the port of quantpy_tpu/ops/kernels.py::rhor_mle_pallas);
-on CPU tensors it runs `rhor_mle_reference`, the same math in plain
+`rhor_mle` and `rhor_mle_flat` each run `n_iter` fixed RrhoR iterations
+for a batch of resamples and reach the same fixed point. On CUDA tensors
+they launch the hand-written kernels of `csrc/rhor_mle.cu` (the port of
+quantpy_tpu/ops/kernels.py::rhor_mle_pallas, whose loop state is the bloch
+vector) and `csrc/rhor_mle_flat.cu` (the port of rhor_mle_pallas_flat,
+whose loop state is the density matrix); on CPU tensors they run
+`rhor_mle_reference` and `rhor_mle_flat_reference`, the same math in plain
 PyTorch. A CUDA tensor reaches the kernel or the call raises.
 
-Both work in the transposed matrix space of the JAX package: the row-major
-reshape of the column-stacked vec(A) is A^T, and the palindrome R rho R is
-closed under transposition, so nothing is ever untransposed.
+All of them work in the transposed matrix space of the JAX package: the
+row-major reshape of the column-stacked vec(A) is A^T, and the palindrome
+R rho R is closed under transposition, so nothing is ever untransposed.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from .paulis import PTM_MAX_QUBITS, _pauli_transfer_np
 
-__all__ = ["rhor_mle", "rhor_mle_reference"]
+__all__ = ["rhor_mle", "rhor_mle_flat", "rhor_mle_flat_reference", "rhor_mle_reference"]
 
 EPS = 1e-10
 
@@ -86,6 +89,51 @@ def rhor_mle_reference(freq, bloch0, w2, n_iter: int, tol: float | None = None):
     return bloch
 
 
+def _flat_operands(w2, n_qubits: int):
+    """(G_re, G_im), each (K, D): G_x = w2 PTM_x^T / d, in the dtype and on
+    the device of `w2`. G [t_re; t_im] gives the POVM probabilities of the
+    transposed density matrix t, and d G^T c the R operator."""
+    ptm_re, ptm_im, _, _ = _ptm_parts(n_qubits, w2.dtype, w2.device)
+    d = 2**n_qubits
+    return w2 @ ptm_re.T / d, w2 @ ptm_im.T / d
+
+
+def _karatsuba(a_re, a_im, b_re, b_im):
+    """Complex batched matmul from three real ones."""
+    p1 = a_re @ b_re
+    p2 = a_im @ b_im
+    p3 = (a_re + a_im) @ (b_re + b_im)
+    return p1 - p2, p3 - p1 - p2
+
+
+def rhor_mle_flat_reference(freq, bloch0, w2, n_iter: int):
+    """Plain PyTorch flat-matrix RrhoR iteration, the same math as the flat
+    kernel: the loop state is the transposed density matrix (t_re, t_im),
+    renormalised to unit trace every iteration. freq (..., K), bloch0
+    (..., D), w2 (K, D) as for `rhor_mle_reference`; always `n_iter`
+    iterations."""
+    n, dim = _dims(w2.shape[-1])
+    ptm_re, ptm_im, _, _ = _ptm_parts(n, w2.dtype, w2.device)
+    g_re, g_im = _flat_operands(w2, n)
+    batch_shape = tuple(bloch0.shape[:-1])
+    mats = batch_shape + (dim, dim)
+    diag = torch.arange(dim, device=w2.device) * (dim + 1)
+
+    t_re, t_im = bloch0 @ ptm_re.T, bloch0 @ ptm_im.T
+    for _ in range(n_iter):
+        probs = t_re @ g_re.T + t_im @ g_im.T
+        tr = t_re[..., diag].sum(-1, keepdim=True)
+        c = freq * tr / probs.clamp(min=EPS)
+        r_re = ((c @ g_re) * dim).reshape(mats)
+        r_im = ((c @ g_im) * dim).reshape(mats)
+        s_re, s_im = _karatsuba(r_re, r_im, t_re.reshape(mats), t_im.reshape(mats))
+        u_re, u_im = _karatsuba(s_re, s_im, r_re, r_im)
+        inv = 1.0 / u_re.diagonal(dim1=-2, dim2=-1).sum(-1).clamp(min=EPS)
+        t_re = u_re.reshape(batch_shape + (-1,)) * inv[..., None]
+        t_im = u_im.reshape(batch_shape + (-1,)) * inv[..., None]
+    return (t_re @ ptm_re + t_im @ ptm_im) / dim
+
+
 def _check(freq, bloch0, w2, n_iter):
     for name, t in (("freq", freq), ("bloch0", bloch0), ("w2", w2)):
         if not isinstance(t, torch.Tensor):
@@ -108,26 +156,77 @@ def _check(freq, bloch0, w2, n_iter):
         raise ValueError("empty batch or POVM")
     if not isinstance(n_iter, int) or n_iter < 0:
         raise ValueError(f"n_iter must be a non-negative int, got {n_iter!r}")
+    if freq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the RrhoR kernels run on cpu or cuda tensors, got {freq.device}")
     return _dims(d2)
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """Build and load the kernel library; declare its C signatures."""
+def _library(name: str):
+    """Build and load csrc/<name>.cu; declare its C signatures. Both kernel
+    libraries export <name>_f32, <name>_f64, <name>_tile,
+    <name>_smem_limit and <name>_error_string with the same signatures."""
     from . import _build
 
-    lib = _build.load("rhor_mle")
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.rhor_mle_f32, lib.rhor_mle_f64):
+    for dtype in ("f32", "f64"):
+        fn = getattr(lib, f"{name}_{dtype}")
         fn.argtypes = [p] * 10 + [i] * 6 + [p]
         fn.restype = i
-    lib.rhor_mle_tile.argtypes = [i]
-    lib.rhor_mle_tile.restype = i
-    lib.rhor_mle_smem_limit.argtypes = [i]
-    lib.rhor_mle_smem_limit.restype = i
-    lib.rhor_mle_error_string.argtypes = [i]
-    lib.rhor_mle_error_string.restype = ctypes.c_char_p
+    for suffix in ("tile", "smem_limit"):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = [i]
+        fn.restype = i
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name, freq, bloch0, mat, mat_t, n, d, n_iter, state_rows):
+    """Launch csrc/<name>.cu on the current stream and return the output.
+
+    `mat` and `mat_t` are the kernel's POVM operand and its transpose
+    (w2 for `rhor_mle`, G for `rhor_mle_flat`); a block keeps `state_rows`
+    rows of tile-width values, in shared memory when they fit and otherwise
+    in a global scratch buffer."""
+    lib = _library(name)
+    error_string = getattr(lib, f"{name}_error_string")
+    b, k = freq.shape
+    d2 = bloch0.shape[-1]
+    is_double = freq.dtype == torch.float64
+    device = freq.device
+    ptm_re, ptm_im, ptm_re_t, ptm_im_t = _ptm_parts(n, freq.dtype, device)
+    out = torch.empty_like(bloch0)
+    tile = getattr(lib, f"{name}_tile")(int(is_double))
+    n_tiles = -(-b // tile)
+    tile_bytes = freq.element_size() * tile * state_rows
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(device):
+        smem_limit = getattr(lib, f"{name}_smem_limit")(index)
+        if smem_limit < 0:
+            raise RuntimeError(
+                f"{name} cannot read the shared-memory limit: "
+                + error_string(-smem_limit).decode()
+            )
+        if tile_bytes <= smem_limit:
+            grid, scratch = n_tiles, None
+        else:
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            grid = min(n_tiles, 2 * sms)
+            scratch = torch.empty(grid * tile * state_rows, dtype=freq.dtype, device=device)
+        fn = getattr(lib, f"{name}_{'f64' if is_double else 'f32'}")
+        err = fn(
+            freq.data_ptr(), bloch0.data_ptr(), mat.data_ptr(), mat_t.data_ptr(),
+            ptm_re.data_ptr(), ptm_im.data_ptr(), ptm_re_t.data_ptr(),
+            ptm_im_t.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            b, k, d2, d, n_iter, grid, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {error_string(err).decode()}")
+    return out
 
 
 def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
@@ -142,49 +241,29 @@ def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
     n, d = _check(freq, bloch0, w2, n_iter)
     if freq.device.type == "cpu":
         return rhor_mle_reference(freq, bloch0, w2, n_iter)
-    if freq.device.type != "cuda":
-        raise ValueError(f"rhor_mle runs on cpu or cuda tensors, got {freq.device}")
-
-    lib = _library()
-    b, k = freq.shape
-    d2 = w2.shape[-1]
-    is_double = freq.dtype == torch.float64
-    device = freq.device
-    ptm_re, ptm_im, ptm_re_t, ptm_im_t = _ptm_parts(n, freq.dtype, device)
-    w2t = w2.T.contiguous()
-    out = torch.empty_like(bloch0)
-    tile = lib.rhor_mle_tile(int(is_double))
-    n_tiles = -(-b // tile)
-    tile_bytes = freq.element_size() * tile * (k + 7 * d2)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(device):
-        smem_limit = lib.rhor_mle_smem_limit(index)
-        if smem_limit < 0:
-            raise RuntimeError(
-                "rhor_mle cannot read the shared-memory limit: "
-                + lib.rhor_mle_error_string(-smem_limit).decode()
-            )
-        if tile_bytes <= smem_limit:
-            grid, scratch = n_tiles, None
-        else:
-            sms = torch.cuda.get_device_properties(device).multi_processor_count
-            grid = min(n_tiles, 2 * sms)
-            scratch = torch.empty(grid * tile * (k + 7 * d2), dtype=freq.dtype, device=device)
-        fn = lib.rhor_mle_f64 if is_double else lib.rhor_mle_f32
-        err = fn(
-            freq.data_ptr(), bloch0.data_ptr(), w2.data_ptr(), w2t.data_ptr(),
-            ptm_re.data_ptr(), ptm_im.data_ptr(), ptm_re_t.data_ptr(),
-            ptm_im_t.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            b, k, d2, d, n_iter, grid, torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"rhor_mle kernel launch failed: {lib.rhor_mle_error_string(err).decode()}"
-        )
+    k, d2 = w2.shape
+    out = _launch("rhor_mle", freq, bloch0, w2, w2.T.contiguous(), n, d, n_iter, k + 7 * d2)
     rhor_mle.launches += 1
+    return out
+
+
+def rhor_mle_flat(freq, bloch0, w2, n_iter: int = 60):
+    """Flat-matrix fused RrhoR MLE, the same contract and fixed point as
+    `rhor_mle`: the loop state is the density matrix, so the Pauli transfer
+    matrix is applied only at entry and exit. On CUDA it launches the flat
+    kernel on the current stream without synchronizing and adds one to
+    `rhor_mle_flat.launches`; on the CPU it runs `rhor_mle_flat_reference`.
+    """
+    n, d = _check(freq, bloch0, w2, n_iter)
+    if freq.device.type == "cpu":
+        return rhor_mle_flat_reference(freq, bloch0, w2, n_iter)
+    k, d2 = w2.shape
+    g = torch.cat(_flat_operands(w2, n), dim=1).contiguous()
+    out = _launch("rhor_mle_flat", freq, bloch0, g, g.T.contiguous(), n, d, n_iter, k + 6 * d2)
+    rhor_mle_flat.launches += 1
     return out
 
 
 #: kernel launches since the count was last reset to 0
 rhor_mle.launches = 0
+rhor_mle_flat.launches = 0

@@ -1,4 +1,4 @@
-"""The RrhoR kernel on the card, against its plain version.
+"""The RrhoR kernels on the card, against their plain versions.
 
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
@@ -91,9 +91,11 @@ def test_kernel_global_scratch_path(cuda):
 def test_estimate_mle_rhor_goes_through_the_kernel(cuda):
     counts, povm, n_meas = _problem(cuda, 2, 5, torch.float32, seed=9)
     before = kernels.rhor_mle.launches
+    flat_before = kernels.rhor_mle_flat.launches
     est = state_core.estimate(counts, povm, n_meas, method="mle-rhor", max_iter=40)
     torch.cuda.synchronize()
     assert kernels.rhor_mle.launches == before + 1
+    assert kernels.rhor_mle_flat.launches == flat_before
     assert est.device.type == "cuda" and est.shape == (5, 16)
     assert bool(torch.isfinite(est).all())
 
@@ -104,3 +106,56 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     w2 = torch.ones(6, 4, device=cuda)
     with pytest.raises(ValueError):
         kernels.rhor_mle(freq, bloch0, w2.cpu(), n_iter=2)
+
+
+def _flat_inputs(device, n, batch, dtype, seed):
+    counts, povm, n_meas = _problem(device, n, batch, dtype, seed)
+    d = 2**n
+    init = state_core.estimate_lin(counts, povm, n_meas)
+    bloch0 = 0.95 * init
+    bloch0[:, 0] += 0.05 / d
+    freq = counts.reshape(batch, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    w2 = (state_core.weighted_povm_flat(povm, n_meas) * d).contiguous()
+    return freq, bloch0.contiguous(), w2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_flat_kernel_matches_plain(cuda, n, dtype):
+    freq, bloch0, w2 = _flat_inputs(cuda, n, 11, dtype, seed=20 + n)
+    before = kernels.rhor_mle_flat.launches
+    out = kernels.rhor_mle_flat(freq, bloch0, w2, n_iter=30)
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle_flat.launches == before + 1
+    ref = kernels.rhor_mle_flat_reference(freq, bloch0, w2, 30)
+    assert float((out - ref).abs().max()) <= TOL[dtype]
+    assert float((out[:, 0] - 1 / 2**n).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("batch, n_iter", [(1, 7), (9, 0)])
+def test_flat_kernel_single_resample_and_zero_iterations(cuda, batch, n_iter):
+    freq, bloch0, w2 = _flat_inputs(cuda, 2, batch, torch.float32, seed=23)
+    out = kernels.rhor_mle_flat(freq, bloch0, w2, n_iter=n_iter)
+    ref = kernels.rhor_mle_flat_reference(freq, bloch0, w2, n_iter)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+def test_flat_kernel_global_scratch_path(cuda):
+    """n = 5 proj-set does not fit in shared memory: the scratch path."""
+    freq, bloch0, w2 = _flat_inputs(cuda, 5, 3, torch.float32, seed=25)
+    out = kernels.rhor_mle_flat(freq, bloch0, w2, n_iter=10)
+    ref = kernels.rhor_mle_flat_reference(freq, bloch0, w2, 10)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+def test_flat_kernel_raises_instead_of_falling_back(cuda):
+    freq = torch.full((2, 6), 1 / 6, device=cuda)
+    bloch0 = torch.zeros(2, 4, device=cuda)
+    w2 = torch.ones(6, 4, device=cuda)
+    before = kernels.rhor_mle_flat.launches
+    with pytest.raises(ValueError):
+        kernels.rhor_mle_flat(freq, bloch0, w2.cpu(), n_iter=2)
+    assert kernels.rhor_mle_flat.launches == before

@@ -14,15 +14,17 @@ non-zero exit code, and nothing falls back to the CPU:
    (sm_90a), one nvcc per source, started together.
 2. Each kernel (rhor_mle, the lane kernel; rhor_mle_flat, the flat-matrix
    kernel) against its plain PyTorch version on identical CUDA inputs
-   (n = 1, 2, 4, 6 in float32, n = 2, 4 in float64, a ragged batch, 40
-   iterations), the two plain versions against each other in float64,
+   (n = 1, 2, 3, 4, 5, 6 in float32, n = 2, 4 in float64, ragged batches,
+   40 iterations), the two plain versions against each other in float64,
    then each kernel and its plain version timed in turns at the flagship
-   shape (B = 16384, K = 1296, D = 256, 60 iterations) with CUDA events.
-3. Main path: StateTomograph(GHZ(4)) on "cuda", a 10^4-shot proj-set
-   experiment, the RrhoR point estimate and a 16,384-resample bootstrap
-   interval (RrhoR-60), with the kernels' launch counts and the device of
-   every tensor operation checked; then kernel and plain versions held
-   against each other on one fixed draw of counts.
+   shape (B = 16384, K = 1296, D = 256, 60 iterations) with CUDA events,
+   beside the least time the card could take (`bound_ms`).
+3. Main path: StateTomograph(GHZ(4)) built without device=, so on the
+   default device, which must be "cuda"; a 10^4-shot proj-set experiment,
+   the RrhoR point estimate and a 16,384-resample bootstrap interval
+   (RrhoR-60), with the kernels' launch counts and the device of every
+   tensor operation checked; then kernel and plain versions held against
+   each other on one fixed draw of counts.
 4. The bootstrap call's steady-state rate (best of 3) and its per-stage
    times, beside the card's name and power limit.
 5. The flat kernel on the main path: the flagship bootstrap_distances call
@@ -60,6 +62,10 @@ CHECK_ITERS = 40
 TOL = {"float32": 5e-5, "float64": 1e-10}  # kernel vs plain, max |delta bloch|
 TRACE_TOL = 1e-6  # out[:, 0] == 1/d
 KERNELS = ("rhor_mle", "rhor_mle_flat")
+# Published peaks of one H100 SXM (NVIDIA data sheet): FP32 and FP64 outside
+# the tensor cores, and HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
 # Kernel path vs plain on one fixed draw of counts: hs distances per resample
 # in float64, and the interval's quantiles in float32, agree to HS_TOL. Per
 # resample in float32 both sit up to ~2e-5 from the float64 result (measured
@@ -171,7 +177,9 @@ def phase2_kernel_vs_plain():
     cases = [
         (1, torch.float32, "proj-set", 37),
         (2, torch.float32, "proj-set", 37),
+        (3, torch.float32, "proj-set", 29),
         (4, torch.float32, "proj-set", 37),
+        (5, torch.float32, "proj-set", 11),
         (6, torch.float32, "sic", 13),
         (2, torch.float64, "proj-set", 37),
         (4, torch.float64, "proj-set", 37),
@@ -207,28 +215,49 @@ def phase2_kernel_vs_plain():
         raise AssertionError(f"the flat and lane plain versions disagree in float64: {err}")
 
     k, d2, d = w2.shape[0], w2.shape[1], 2**N_QUBITS
-    macs = {"rhor_mle": 2 * k * d2 + 6 * d2**2 + 8 * d**3, "rhor_mle_flat": 4 * k * d2 + 8 * d**3}
+    # the multiply-adds each kernel's loop runs with dense PTM maps (the
+    # dense count), and the function's least work: two POVM products, the
+    # PTM maps as d-term signed gathers (3 D d) and the complex sandwich
+    dense_macs = {"rhor_mle": 2 * k * d2 + 6 * d2**2 + 8 * d**3,
+                  "rhor_mle_flat": 4 * k * d2 + 8 * d**3}
+    least_macs = 2 * k * d2 + 3 * d2 * d + 8 * d**3
     measured = {}
     for dtype, reps in ((torch.float32, 2), (torch.float64, 1)):
         name = str(dtype).removeprefix("torch.")
         freq, bloch0, w2 = _problem(N_QUBITS, N_POINTS, dtype, "proj-set", N_SHOTS, seed=7)
+        bound = _bound(freq, bloch0, w2, least_macs, name)
         for kname, (kernel, plain) in pairs.items():
             run_plain = lambda: plain(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
             run_kernel = lambda: kernel(freq, bloch0, w2, MLE_ITERS)  # noqa: E731
             err = float((run_kernel() - run_plain()).abs().max())
             torch.cuda.synchronize()
             kernel_ms, plain_ms = _in_turns(run_kernel, run_plain, reps)
-            flops = 2.0 * MLE_ITERS * N_POINTS * macs[kname]
+            flops = 2.0 * MLE_ITERS * N_POINTS * dense_macs[kname]
             log(f"    {kname} flagship B={N_POINTS} K={k} D={d2} iters={MLE_ITERS} {name}: "
-                f"kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.2f} TFLOP/s), "
-                f"plain {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.2f} TFLOP/s), "
-                f"max|kernel-plain| {err:.3e}")
+                f"kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.2f} dense-count TFLOP/s), "
+                f"plain {plain_ms:.3f} ms ({flops / plain_ms / 1e9:.2f} dense-count TFLOP/s), "
+                f"bound {bound['bound_ms']:.3f} ms ({least_macs} MACs per resample-iteration "
+                f"at {PEAK_FLOPS[name] / 1e12:.0f} TFLOP/s), kernel at "
+                f"{bound['bound_ms'] / kernel_ms:.3f} of the bound, max|kernel-plain| {err:.3e}")
             if not (math.isfinite(err) and err <= TOL[name]):
                 raise AssertionError(f"{kname} disagrees with plain at the flagship shape: {err}")
             if dtype == torch.float32:
                 measured[kname] = {"max_abs_err": max(worst_f32[kname], err),
-                                   "ms": kernel_ms, "plain_ms": plain_ms}
+                                   "ms": kernel_ms, "plain_ms": plain_ms, **bound,
+                                   "bound_share": bound["bound_ms"] / kernel_ms,
+                                   "library_ms": None}
     return measured
+
+
+def _bound(freq, bloch0, w2, macs, dtype_name):
+    """The least time of one flagship call on the card, in ms: the larger of
+    its least operations over the peak rate and its bytes (each input read
+    once, the output written once) over the memory rate."""
+    ops_ms = 2.0 * MLE_ITERS * freq.shape[0] * macs / PEAK_FLOPS[dtype_name] * 1e3
+    n_bytes = freq.element_size() * (freq.numel() + 2 * bloch0.numel() + w2.numel())
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 class DeviceAudit(TorchDispatchMode):
@@ -270,7 +299,7 @@ def phase3_main_path(card):
     kernels.rhor_mle_flat.launches = 0
     t0 = time.perf_counter()
     with audit:
-        tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=2026, device=DEVICE)
+        tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=2026)  # the default device
         tmg.experiment(N_SHOTS, "proj-set")
         est = tmg.point_estimate("mle-rhor")
         interval = qtt.BootstrapStateInterval(
@@ -285,6 +314,12 @@ def phase3_main_path(card):
     infid = float(qtt.if_dst(est, qtt.GHZ(N_QUBITS)))
     sample = interval.distances
     median = float(np.median(sample))
+    default_counts = tmg.simulate_batch(2)
+    log(f"    StateTomograph without device=: device {tmg.device}, generator "
+        f"{tmg.generator.device}, simulated counts on {default_counts.device}")
+    if not (tmg.device.type == tmg.generator.device.type == default_counts.device.type
+            == DEVICE):
+        raise AssertionError(f"the default device is not {DEVICE}: {tmg.device}")
     log(f"    point estimate infidelity to GHZ-4: {infid:.3e}")
     log(f"    bootstrap hs distances at {levels}: {[float(x) for x in dists]}; "
         f"median {median:.4e}; first run {wall:.2f} s with the audit on")

@@ -11,9 +11,12 @@ package measured that bf16 matmuls collapse the 4-qubit bootstrap's
 distance distribution (median 0.004 -> 0.84), and TF32 is the CUDA
 counterpart of that risk.
 
-The package picks no device by itself: the default is the CPU, and a
-caller that wants the GPU says so (``set_device("cuda")`` or an explicit
-``device=`` argument).
+The default device is the card, ``cuda``: data that arrives as numpy arrays,
+and a tomograph built without ``device=``, land there. A caller that wants
+the CPU says so (``set_device("cpu")`` or an explicit ``device=``
+argument). Nothing checks whether a GPU is present: on a host without CUDA
+the default raises where PyTorch does for a CUDA tensor, and nothing
+carries on on the CPU instead.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ _REAL_DTYPES = (torch.float32, torch.float64)
 _COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 _dtype = torch.float32
-_device = torch.device("cpu")
+_device = torch.device("cuda")
 
 
 def set_dtype(dtype: torch.dtype) -> None:
@@ -65,13 +68,14 @@ def complex_dtype(real: torch.dtype) -> torch.dtype:
 
 
 def set_device(device) -> None:
-    """Set the default device for data that arrives as numpy arrays."""
+    """Set the default device for data that arrives as numpy arrays and for
+    tomographs built without ``device=``."""
     global _device
     _device = torch.device(device)
 
 
 def get_device() -> torch.device:
-    """Current default device (the CPU unless set otherwise)."""
+    """Current default device (``cuda`` unless set otherwise)."""
     return _device
 
 

@@ -21,7 +21,9 @@ def tomograph_from_arrays(
     povm_matrix, n_measurements, results, state_bloch, *, device=None, dtype=None, seed=0
 ) -> StateTomograph:
     """A port StateTomograph holding the given design, counts and true
-    state, computing on `device` in `dtype`, seeded with `seed`."""
+    state, computing on `device` in `dtype`, seeded with `seed`. The
+    defaults are the port's (`config.get_device()`, `config.rdtype()`), as
+    for `StateTomograph`."""
     tmg = StateTomograph(
         Qobj(np.array(state_bloch, dtype=np.float64)),
         key=seed, device=device, dtype=dtype,

@@ -12,6 +12,12 @@ PyTorch. A CUDA tensor reaches the kernel or the call raises.
 All of them work in the transposed matrix space of the JAX package: the
 row-major reshape of the column-stacked vec(A) is A^T, and the palindrome
 R rho R is closed under transposition, so nothing is ever untransposed.
+
+The lane kernel applies the Pauli transfer matrix as a signed gather: every
+row and every column of PTM has exactly d non-zeros, each one of +-1 and
++-i. `_ptm_gather_tables` lists them; `_ptm_gather_apply` and
+`_ptm_gather_back` state in plain PyTorch what the kernel computes from
+them.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from .paulis import PTM_MAX_QUBITS, _pauli_transfer_np
@@ -36,6 +43,60 @@ def _ptm_parts(n_qubits: int, dtype: torch.dtype, device: torch.device):
     re = torch.as_tensor(ptm.real, dtype=dtype, device=device).contiguous()
     im = torch.as_tensor(ptm.imag, dtype=dtype, device=device).contiguous()
     return re, im, re.T.contiguous(), im.T.contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def _ptm_gather_tables(n_qubits: int, device: torch.device):
+    """(fwd, back), each an int32 (d, D) tensor on `device`: PTM's non-zeros
+    as signed gathers, entry = (index << 2) | (imaginary << 1) | negative.
+
+    fwd[k, i] is the k-th non-zero of row i of PTM (its bloch index j), so
+    that PTM[i, :] x = sum_k +-x_j into the real or the imaginary part.
+    back[k, j] is the k-th non-zero of column j (its vec index i), so that
+    (t_re PTM_re + t_im PTM_im)_j = sum_k +-t_re_i or +-t_im_i. Built from
+    the same PTM as `_ptm_parts`; the (d, D) layout lets neighbouring
+    outputs read neighbouring entries.
+    """
+    ptm = _pauli_transfer_np(n_qubits)
+    dim2, dim = 4**n_qubits, 2**n_qubits
+    rows, cols = np.nonzero(ptm)  # row-major: row i's d columns together
+    vals = ptm[rows, cols]
+    per_row = np.bincount(rows, minlength=dim2)
+    per_col = np.bincount(cols, minlength=dim2)
+    if not (np.all(per_row == dim) and np.all(per_col == dim)
+            and np.all(np.abs(vals.real) + np.abs(vals.imag) == 1)
+            and np.all(vals.real * vals.imag == 0)):
+        raise AssertionError("PTM is not d non-zeros of +-1, +-i per row and column")
+    code = 2 * (vals.imag != 0) + (vals.real + vals.imag < 0)
+    by_col = np.argsort(cols, kind="stable")  # column j's d rows together
+
+    def table(index, codes):
+        packed = ((index << 2) | codes).reshape(dim2, dim).T.astype(np.int32)
+        return torch.as_tensor(np.ascontiguousarray(packed), device=device)
+
+    return table(cols, code), table(rows[by_col], code[by_col])
+
+
+def _unpack(table):
+    """(index, sign, imaginary) of a gather table, as int64 tensors."""
+    t = table.long()
+    return t >> 2, 1 - 2 * (t & 1), (t >> 1) & 1
+
+
+def _ptm_gather_apply(x, tables):
+    """(x PTM_re^T, x PTM_im^T) for x (..., D), by the gather tables."""
+    idx, sign, imag = _unpack(tables[0])
+    vals = x[..., idx] * sign.to(x.dtype)
+    imag = imag.to(torch.bool)
+    return vals.masked_fill(imag, 0).sum(-2), vals.masked_fill(~imag, 0).sum(-2)
+
+
+def _ptm_gather_back(t_re, t_im, tables):
+    """t_re PTM_re + t_im PTM_im for t_re, t_im (..., D), by the gather
+    tables."""
+    idx, sign, imag = _unpack(tables[1])
+    vals = torch.where(imag.to(torch.bool), t_im[..., idx], t_re[..., idx])
+    return (vals * sign.to(t_re.dtype)).sum(-2)
 
 
 def _dims(dim2: int) -> tuple[int, int]:
@@ -161,18 +222,24 @@ def _check(freq, bloch0, w2, n_iter):
     return _dims(d2)
 
 
+#: pointer operands of each kernel between bloch0 and out, in the order of
+#: its C interface
+_OPERANDS = {"rhor_mle": 4, "rhor_mle_flat": 6}
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str):
-    """Build and load csrc/<name>.cu; declare its C signatures. Both kernel
-    libraries export <name>_f32, <name>_f64, <name>_tile,
-    <name>_smem_limit and <name>_error_string with the same signatures."""
+    """Build and load csrc/<name>.cu; declare its C signatures. Each kernel
+    library exports <name>_f32 and <name>_f64 (freq, bloch0, the kernel's
+    operands, out, scratch, B, K, D, d, n_iter, grid, stream), and
+    <name>_tile, <name>_smem_limit and <name>_error_string."""
     from . import _build
 
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     for dtype in ("f32", "f64"):
         fn = getattr(lib, f"{name}_{dtype}")
-        fn.argtypes = [p] * 10 + [i] * 6 + [p]
+        fn.argtypes = [p] * (4 + _OPERANDS[name]) + [i] * 6 + [p]
         fn.restype = i
     for suffix in ("tile", "smem_limit"):
         fn = getattr(lib, f"{name}_{suffix}")
@@ -184,20 +251,18 @@ def _library(name: str):
     return lib
 
 
-def _launch(name, freq, bloch0, mat, mat_t, n, d, n_iter, state_rows):
+def _launch(name, freq, bloch0, operands, d, n_iter, state_rows):
     """Launch csrc/<name>.cu on the current stream and return the output.
 
-    `mat` and `mat_t` are the kernel's POVM operand and its transpose
-    (w2 for `rhor_mle`, G for `rhor_mle_flat`); a block keeps `state_rows`
-    rows of tile-width values, in shared memory when they fit and otherwise
-    in a global scratch buffer."""
+    `operands` are the kernel's tensors between bloch0 and out in its C
+    interface; a block keeps `state_rows` rows of tile-width values, in
+    shared memory when they fit and otherwise in a global scratch buffer."""
     lib = _library(name)
     error_string = getattr(lib, f"{name}_error_string")
     b, k = freq.shape
     d2 = bloch0.shape[-1]
     is_double = freq.dtype == torch.float64
     device = freq.device
-    ptm_re, ptm_im, ptm_re_t, ptm_im_t = _ptm_parts(n, freq.dtype, device)
     out = torch.empty_like(bloch0)
     tile = getattr(lib, f"{name}_tile")(int(is_double))
     n_tiles = -(-b // tile)
@@ -218,15 +283,22 @@ def _launch(name, freq, bloch0, mat, mat_t, n, d, n_iter, state_rows):
             scratch = torch.empty(grid * tile * state_rows, dtype=freq.dtype, device=device)
         fn = getattr(lib, f"{name}_{'f64' if is_double else 'f32'}")
         err = fn(
-            freq.data_ptr(), bloch0.data_ptr(), mat.data_ptr(), mat_t.data_ptr(),
-            ptm_re.data_ptr(), ptm_im.data_ptr(), ptm_re_t.data_ptr(),
-            ptm_im_t.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            freq.data_ptr(), bloch0.data_ptr(), *(t.data_ptr() for t in operands),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             b, k, d2, d, n_iter, grid, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: {error_string(err).decode()}")
     return out
+
+
+def _lane_operands(w2, n_qubits: int):
+    """The lane kernel's operands: w2, which it reads in 16-byte vectors (so
+    it is copied if its storage is not 16-byte aligned), w2^T, and the PTM
+    gather tables."""
+    if w2.data_ptr() % 16:
+        w2 = w2.clone()
+    return (w2, w2.T.contiguous(), *_ptm_gather_tables(n_qubits, w2.device))
 
 
 def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
@@ -242,7 +314,7 @@ def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
     if freq.device.type == "cpu":
         return rhor_mle_reference(freq, bloch0, w2, n_iter)
     k, d2 = w2.shape
-    out = _launch("rhor_mle", freq, bloch0, w2, w2.T.contiguous(), n, d, n_iter, k + 7 * d2)
+    out = _launch("rhor_mle", freq, bloch0, _lane_operands(w2, n), d, n_iter, k + 7 * d2)
     rhor_mle.launches += 1
     return out
 
@@ -259,7 +331,8 @@ def rhor_mle_flat(freq, bloch0, w2, n_iter: int = 60):
         return rhor_mle_flat_reference(freq, bloch0, w2, n_iter)
     k, d2 = w2.shape
     g = torch.cat(_flat_operands(w2, n), dim=1).contiguous()
-    out = _launch("rhor_mle_flat", freq, bloch0, g, g.T.contiguous(), n, d, n_iter, k + 6 * d2)
+    operands = (g, g.T.contiguous(), *_ptm_parts(n, freq.dtype, freq.device))
+    out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 6 * d2)
     rhor_mle_flat.launches += 1
     return out
 

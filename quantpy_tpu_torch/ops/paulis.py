@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import complex_dtype, rdtype
+from ..config import complex_dtype, get_device, rdtype
 
 __all__ = [
     "PAULI_1",
@@ -83,7 +83,8 @@ def _pauli_transfer_np(n_qubits: int) -> np.ndarray:
 
 def pauli_transfer_matrix(n_qubits: int, dtype=None, device=None) -> torch.Tensor:
     """The bloch -> vec(matrix) transfer matrix as a complex tensor of the
-    precision of the real dtype `dtype` (default: the port's)."""
+    precision of the real dtype `dtype`, on `device` (defaults: the
+    port's)."""
     if n_qubits > PTM_MAX_QUBITS:
         raise ValueError(
             f"Dense Pauli transfer matrix capped at {PTM_MAX_QUBITS} qubits; "
@@ -92,7 +93,7 @@ def pauli_transfer_matrix(n_qubits: int, dtype=None, device=None) -> torch.Tenso
     return torch.as_tensor(
         _pauli_transfer_np(n_qubits),
         dtype=complex_dtype(dtype or rdtype()),
-        device=device,
+        device=device or get_device(),
     )
 
 

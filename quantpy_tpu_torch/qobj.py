@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .base import BaseQuantum
-from .config import rdtype
+from .config import get_device, rdtype
 from .ops.paulis import np_bloch_to_matrix, np_matrix_to_bloch
 
 __all__ = ["Qobj", "fully_mixed", "GHZ", "zero"]
@@ -91,8 +91,11 @@ class Qobj(BaseQuantum):
         self._matrix = None
 
     def bloch_tensor(self, device=None, dtype=None) -> torch.Tensor:
-        """Real bloch vector as a tensor (default dtype: the port's)."""
-        return torch.as_tensor(self.bloch, dtype=dtype or rdtype(), device=device)
+        """Real bloch vector as a tensor (default dtype and device: the
+        port's)."""
+        return torch.as_tensor(
+            self.bloch, dtype=dtype or rdtype(), device=device or get_device()
+        )
 
     def ptrace(self, keep=(0,)) -> "Qobj":
         """Partial trace keeping qubit indices `keep`."""

@@ -29,10 +29,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(device, n, batch, dtype, seed):
+def _problem(device, n, batch, dtype, seed, povm="proj-set"):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    povm = torch.as_tensor(qtt.generate_measurement_matrix("proj-set", n), dtype=dtype, device=device)
+    povm = torch.as_tensor(qtt.generate_measurement_matrix(povm, n), dtype=dtype, device=device)
     n_meas = torch.full((povm.shape[0],), 2000.0, dtype=dtype, device=device)
     truth = qtt.GHZ(n).bloch_tensor(device, dtype)
     counts = state_core.simulate_experiment(gen, povm, truth.expand(batch, -1), n_meas)
@@ -40,9 +40,13 @@ def _problem(device, n, batch, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 3, 4])
-def test_kernel_matches_plain(cuda, n, dtype):
-    counts, povm, n_meas = _problem(cuda, n, 11, dtype, seed=n)
+@pytest.mark.parametrize(
+    "n, povm",
+    [(1, "proj-set"), (2, "proj-set"), (3, "proj-set"), (4, "proj-set"), (5, "proj-set"),
+     (6, "sic")],
+)
+def test_kernel_matches_plain(cuda, n, povm, dtype):
+    counts, povm, n_meas = _problem(cuda, n, 11, dtype, seed=n, povm=povm)
     d = 2**n
     init = state_core.estimate_lin(counts, povm, n_meas)
     bloch0 = 0.95 * init

@@ -18,6 +18,8 @@ import quantpy_tpu_torch as qtt  # noqa: E402
 from quantpy_tpu_torch import config  # noqa: E402
 from quantpy_tpu_torch.ops import paulis  # noqa: E402
 
+from ._torch_cpu import on_cpu  # noqa: E402, F401
+
 ATOL = 1e-12
 
 

@@ -15,6 +15,8 @@ from quantpy_tpu_torch.ops.sampling import sample_multinomial  # noqa: E402
 from quantpy_tpu_torch.tomography import state_core  # noqa: E402
 import quantpy_tpu_torch as qtt  # noqa: E402
 
+from ._torch_cpu import on_cpu  # noqa: E402, F401
+
 
 def _gen(seed):
     g = torch.Generator()

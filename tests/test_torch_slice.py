@@ -22,6 +22,8 @@ from quantpy_tpu_torch import config, interop  # noqa: E402
 from quantpy_tpu_torch.ops import kernels  # noqa: E402
 from quantpy_tpu_torch.tomography import bootstrap_core, state_core  # noqa: E402
 
+from ._torch_cpu import on_cpu  # noqa: E402, F401
+
 REPO = Path(__file__).resolve().parents[1]
 ATOL64 = 1e-8
 
@@ -145,6 +147,7 @@ def test_dense_limit_names_roadmap():
 def test_port_never_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|quantpy_tpu)\b", re.MULTILINE)
     files = sorted((REPO / "quantpy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "tools").glob("*.py"))
     assert len(files) > 10
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

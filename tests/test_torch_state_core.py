@@ -21,6 +21,8 @@ from quantpy_tpu_torch import config  # noqa: E402
 from quantpy_tpu_torch.ops import kernels  # noqa: E402
 from quantpy_tpu_torch.tomography import state_core  # noqa: E402
 
+from ._torch_cpu import on_cpu  # noqa: E402, F401
+
 ATOL64 = 1e-8
 
 

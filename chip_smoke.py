@@ -215,12 +215,14 @@ def phase2_kernel_vs_plain():
         raise AssertionError(f"the flat and lane plain versions disagree in float64: {err}")
 
     k, d2, d = w2.shape[0], w2.shape[1], 2**N_QUBITS
-    # the multiply-adds each kernel's loop runs with dense PTM maps (the
-    # dense count), and the function's least work: two POVM products, the
-    # PTM maps as d-term signed gathers (3 D d) and the complex sandwich
+    # the multiply-adds each kernel's loop runs per resample-iteration with
+    # dense PTM maps (the dense count), and the function's least work: the
+    # Hermitian state folded to D real entries needs no PTM inside the loop,
+    # two K x D POVM products, S = R t in full (4 d^3) and only the D real
+    # entries of the Hermitian S R (2 d^3); the flat kernel runs exactly that
     dense_macs = {"rhor_mle": 2 * k * d2 + 6 * d2**2 + 8 * d**3,
-                  "rhor_mle_flat": 4 * k * d2 + 8 * d**3}
-    least_macs = 2 * k * d2 + 3 * d2 * d + 8 * d**3
+                  "rhor_mle_flat": 2 * k * d2 + 6 * d**3}
+    least_macs = 2 * k * d2 + 6 * d**3
     measured = {}
     for dtype, reps in ((torch.float32, 2), (torch.float64, 1)):
         name = str(dtype).removeprefix("torch.")

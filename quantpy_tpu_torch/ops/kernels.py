@@ -18,6 +18,11 @@ row and every column of PTM has exactly d non-zeros, each one of +-1 and
 +-i. `_ptm_gather_tables` lists them; `_ptm_gather_apply` and
 `_ptm_gather_back` state in plain PyTorch what the kernel computes from
 them.
+
+The flat kernel keeps the Hermitian density matrix folded to its D real
+entries (`_fold`, `_unfold`), and the POVM operands with it
+(`_flat_fold_operands`), so its two POVM products are K x D like the lane
+kernel's; `_rhor_mle_flat_folded` states its iteration in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -159,6 +164,62 @@ def _flat_operands(w2, n_qubits: int):
     return w2 @ ptm_re.T / d, w2 @ ptm_im.T / d
 
 
+@functools.lru_cache(maxsize=8)
+def _fold_tables(n_qubits: int, device: torch.device):
+    """(src, upper, low, sign), each a (D,) tensor on `device`: the fold of
+    a Hermitian d x d matrix (re, im), row-major over i = a d + e, to its D
+    real entries F[i] = re[a, e] for a <= e and im[e, a] for a > e.
+
+    fold: F = where(upper, re[src], im[src]); unfold: re = F[src],
+    im = sign F[low], with src the mirrored index e d + a where a > e, low
+    the mirrored index where a < e, and sign +1 above the diagonal, -1
+    below it, 0 on it."""
+    d = 2**n_qubits
+    i = np.arange(d * d)
+    a, e = np.divmod(i, d)
+    mirror = e * d + a
+    upper = a <= e
+    tables = (np.where(upper, i, mirror), upper, np.where(upper, mirror, i), np.sign(e - a))
+    return tuple(torch.as_tensor(t, device=device) for t in tables)
+
+
+def _fold(re, im):
+    """F (..., D) of the Hermitian pair (re, im), each (..., D)."""
+    src, upper, _, _ = _fold_tables(_dims(re.shape[-1])[0], re.device)
+    return torch.where(upper, re[..., src], im[..., src])
+
+
+def _unfold(f):
+    """The Hermitian pair (re, im), each (..., D), of its fold F (..., D)."""
+    src, _, low, sign = _fold_tables(_dims(f.shape[-1])[0], f.device)
+    return f[..., src], f[..., low] * sign.to(f.dtype)
+
+
+def _flat_fold_operands(w2, n_qubits: int):
+    """The flat kernel's operands, in the dtype and on the device of `w2`.
+
+    With H (K, D) the fold of each row of [G_re | G_im] (`_flat_operands`;
+    for every k, G_re[k] is symmetric and G_im[k] antisymmetric as d x d
+    matrices) and w 1 on the diagonal and 2 off it:
+
+    - hw_t (D, K) = (H o w)^T, so that p = F @ hw_t;
+    - h_d (K, D) = d H, so that c @ h_d is the fold of R; a new tensor, so
+      its storage is 16-byte aligned for the kernel's vector loads;
+    - entry (D, D) = P_in^T, so that F = bloch0 @ entry is the fold of
+      (bloch0 PTM_re^T, bloch0 PTM_im^T);
+    - exit (D, D) = P_out, so that bloch = F @ exit / d.
+    """
+    ptm_re, ptm_im, ptm_re_t, ptm_im_t = _ptm_parts(n_qubits, w2.dtype, w2.device)
+    src, _, low, sign = _fold_tables(n_qubits, w2.device)
+    d = 2**n_qubits
+    h = _fold(*_flat_operands(w2, n_qubits))
+    weight = torch.full((d * d,), 2.0, dtype=w2.dtype, device=w2.device)
+    weight[torch.arange(d, device=w2.device) * (d + 1)] = 1.0
+    exit_map = torch.zeros_like(ptm_re).index_add_(0, src, ptm_re)
+    exit_map.index_add_(0, low, sign.to(w2.dtype)[:, None] * ptm_im)
+    return (h * weight).T.contiguous(), d * h, _fold(ptm_re_t, ptm_im_t), exit_map
+
+
 def _karatsuba(a_re, a_im, b_re, b_im):
     """Complex batched matmul from three real ones."""
     p1 = a_re @ b_re
@@ -195,6 +256,34 @@ def rhor_mle_flat_reference(freq, bloch0, w2, n_iter: int):
     return (t_re @ ptm_re + t_im @ ptm_im) / dim
 
 
+def _rhor_mle_flat_folded(freq, bloch0, w2, n_iter: int):
+    """Plain PyTorch statement of what the flat kernel computes: the
+    iteration of `rhor_mle_flat_reference` with the Hermitian state folded
+    to its D real entries F (`_fold`), so both POVM products are K x D.
+    Per iteration: p = F hw_t, c = f tr / max(p, eps), R = unfold(c h_d),
+    S = R t with t = unfold(F), then only the fold of U = S R (Re U[a, e]
+    for a <= e, -Im U[a, e] for a > e), renormalised to unit trace."""
+    n, dim = _dims(w2.shape[-1])
+    hw_t, h_d, entry, exit_map = _flat_fold_operands(w2, n)
+    upper = _fold_tables(n, w2.device)[1]
+    batch_shape = tuple(bloch0.shape[:-1])
+    mats = batch_shape + (dim, dim)
+    diag = torch.arange(dim, device=w2.device) * (dim + 1)
+
+    f = bloch0 @ entry
+    for _ in range(n_iter):
+        tr = f[..., diag].sum(-1, keepdim=True)
+        c = freq * tr / (f @ hw_t).clamp(min=EPS)
+        r_re, r_im = (x.reshape(mats) for x in _unfold(c @ h_d))
+        t_re, t_im = (x.reshape(mats) for x in _unfold(f))
+        s_re, s_im = _karatsuba(r_re, r_im, t_re, t_im)
+        u_re, u_im = _karatsuba(s_re, s_im, r_re, r_im)
+        flat = batch_shape + (-1,)
+        u = torch.where(upper, u_re.reshape(flat), -u_im.reshape(flat))
+        f = u / u[..., diag].sum(-1, keepdim=True).clamp(min=EPS)
+    return f @ exit_map / dim
+
+
 def _check(freq, bloch0, w2, n_iter):
     for name, t in (("freq", freq), ("bloch0", bloch0), ("w2", w2)):
         if not isinstance(t, torch.Tensor):
@@ -222,16 +311,11 @@ def _check(freq, bloch0, w2, n_iter):
     return _dims(d2)
 
 
-#: pointer operands of each kernel between bloch0 and out, in the order of
-#: its C interface
-_OPERANDS = {"rhor_mle": 4, "rhor_mle_flat": 6}
-
-
 @functools.lru_cache(maxsize=None)
 def _library(name: str):
     """Build and load csrc/<name>.cu; declare its C signatures. Each kernel
     library exports <name>_f32 and <name>_f64 (freq, bloch0, the kernel's
-    operands, out, scratch, B, K, D, d, n_iter, grid, stream), and
+    four operands, out, scratch, B, K, D, d, n_iter, grid, stream), and
     <name>_tile, <name>_smem_limit and <name>_error_string."""
     from . import _build
 
@@ -239,7 +323,7 @@ def _library(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     for dtype in ("f32", "f64"):
         fn = getattr(lib, f"{name}_{dtype}")
-        fn.argtypes = [p] * (4 + _OPERANDS[name]) + [i] * 6 + [p]
+        fn.argtypes = [p] * 8 + [i] * 6 + [p]
         fn.restype = i
     for suffix in ("tile", "smem_limit"):
         fn = getattr(lib, f"{name}_{suffix}")
@@ -322,17 +406,18 @@ def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
 def rhor_mle_flat(freq, bloch0, w2, n_iter: int = 60):
     """Flat-matrix fused RrhoR MLE, the same contract and fixed point as
     `rhor_mle`: the loop state is the density matrix, so the Pauli transfer
-    matrix is applied only at entry and exit. On CUDA it launches the flat
-    kernel on the current stream without synchronizing and adds one to
-    `rhor_mle_flat.launches`; on the CPU it runs `rhor_mle_flat_reference`.
+    matrix is applied only at entry and exit. The kernel keeps the state
+    folded to its D real entries (`_rhor_mle_flat_folded`). On CUDA it
+    launches the flat kernel on the current stream without synchronizing
+    and adds one to `rhor_mle_flat.launches`; on the CPU it runs
+    `rhor_mle_flat_reference`.
     """
     n, d = _check(freq, bloch0, w2, n_iter)
     if freq.device.type == "cpu":
         return rhor_mle_flat_reference(freq, bloch0, w2, n_iter)
     k, d2 = w2.shape
-    g = torch.cat(_flat_operands(w2, n), dim=1).contiguous()
-    operands = (g, g.T.contiguous(), *_ptm_parts(n, freq.dtype, freq.device))
-    out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 6 * d2)
+    operands = _flat_fold_operands(w2, n)
+    out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 7 * d2)
     rhor_mle_flat.launches += 1
     return out
 

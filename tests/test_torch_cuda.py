@@ -3,7 +3,9 @@
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(the card's host has no `jax`, which tests/conftest.py imports).
 
 Tolerances: 5e-5 in float32 (that of tests/test_kernels.py; sums run in
 another order than cuBLAS's) and 1e-10 in float64.
@@ -112,8 +114,8 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         kernels.rhor_mle(freq, bloch0, w2.cpu(), n_iter=2)
 
 
-def _flat_inputs(device, n, batch, dtype, seed):
-    counts, povm, n_meas = _problem(device, n, batch, dtype, seed)
+def _flat_inputs(device, n, batch, dtype, seed, povm="proj-set"):
+    counts, povm, n_meas = _problem(device, n, batch, dtype, seed, povm=povm)
     d = 2**n
     init = state_core.estimate_lin(counts, povm, n_meas)
     bloch0 = 0.95 * init
@@ -125,9 +127,13 @@ def _flat_inputs(device, n, batch, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 3, 4])
-def test_flat_kernel_matches_plain(cuda, n, dtype):
-    freq, bloch0, w2 = _flat_inputs(cuda, n, 11, dtype, seed=20 + n)
+@pytest.mark.parametrize(
+    "n, povm",
+    [(1, "proj-set"), (2, "proj-set"), (3, "proj-set"), (4, "proj-set"), (5, "proj-set"),
+     (6, "sic")],
+)
+def test_flat_kernel_matches_plain(cuda, n, povm, dtype):
+    freq, bloch0, w2 = _flat_inputs(cuda, n, 11, dtype, seed=20 + n, povm=povm)
     before = kernels.rhor_mle_flat.launches
     out = kernels.rhor_mle_flat(freq, bloch0, w2, n_iter=30)
     torch.cuda.synchronize()
@@ -146,13 +152,14 @@ def test_flat_kernel_single_resample_and_zero_iterations(cuda, batch, n_iter):
     assert float((out - ref).abs().max()) <= TOL[torch.float32]
 
 
-def test_flat_kernel_global_scratch_path(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flat_kernel_global_scratch_path(cuda, dtype):
     """n = 5 proj-set does not fit in shared memory: the scratch path."""
-    freq, bloch0, w2 = _flat_inputs(cuda, 5, 3, torch.float32, seed=25)
+    freq, bloch0, w2 = _flat_inputs(cuda, 5, 3, dtype, seed=25)
     out = kernels.rhor_mle_flat(freq, bloch0, w2, n_iter=10)
     ref = kernels.rhor_mle_flat_reference(freq, bloch0, w2, 10)
     torch.cuda.synchronize()
-    assert float((out - ref).abs().max()) <= TOL[torch.float32]
+    assert float((out - ref).abs().max()) <= TOL[dtype]
 
 
 def test_flat_kernel_raises_instead_of_falling_back(cuda):

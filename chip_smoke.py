@@ -21,10 +21,11 @@ non-zero exit code, and nothing falls back to the CPU:
    beside the least time the card could take (`bound_ms`).
 3. Main path: StateTomograph(GHZ(4)) built without device=, so on the
    default device, which must be "cuda"; a 10^4-shot proj-set experiment,
-   the RrhoR point estimate and a 16,384-resample bootstrap interval
-   (RrhoR-60), with the kernels' launch counts and the device of every
-   tensor operation checked; then kernel and plain versions held against
-   each other on one fixed draw of counts.
+   the RrhoR point estimate (a single experiment: the plain loop, which
+   stops at its tolerance) and a 16,384-resample bootstrap interval
+   (RrhoR-60: one launch of the lane kernel), with the kernels' launch
+   counts and the device of every tensor operation checked; then kernel
+   and plain versions held against each other on one fixed draw of counts.
 4. The bootstrap call's steady-state rate (best of 3) and its per-stage
    times, beside the card's name and power limit.
 5. The flat kernel on the main path: the flagship bootstrap_distances call
@@ -32,6 +33,18 @@ non-zero exit code, and nothing falls back to the CPU:
    swaps the JAX kernels), launch counts and devices checked; flat and
    lane kernels held against each other on one fixed draw of counts; the
    rate of both variants, best of 3, in turns.
+6. Cholesky MLE ('mle', batched L-BFGS) on the card: GHZ-4 point estimates
+   ('mle-constr' must equal 'mle'), a 1,024-resample bootstrap interval
+   audited for devices and for kernel launches (none), the per-resample
+   likelihood of 'mle' beside RrhoR-60 on one fixed draw, the float64
+   agreement of 'mle' and 'mle-rhor' at 2 qubits, and the bootstrap's rate
+   and idle share (torch.profiler's device time against the call's time).
+7. The kron-factored path on the card: its chains, lin and RrhoR against
+   the dense path at 4 qubits; StateTomograph(GHZ(6)) in kron mode; the
+   6-qubit 256-resample MLE bootstrap of bench.py, audited, with its rate
+   and idle share; bench.py's
+   scaling rows (6, 8, 10, 11 qubits: simulate, lin and MLE-60 times, hs to
+   the truth, peak memory); bench.py's 10-qubit 16-resample bootstrap rate.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -75,6 +88,13 @@ HS_TOL = 1e-5
 HS_TOL_F32 = 5e-5
 MEDIAN_BAND = (1e-3, 2e-2)
 DEVICE = "cuda"
+# bench.py's kron-path workloads: the scaling rows' qubit counts, and the
+# large MLE bootstrap (qubits, resamples)
+KRON_SCALING = (6, 8, 10, 11)
+KRON_BOOT = (10, 16)
+# an estimate's hs distance to the true state must stay under this (the JAX
+# package's TPU record is 0.0020-0.0035 at 6-11 qubits: a sanity band only)
+TRUTH_HS_LIMIT = 0.01
 
 
 def log(msg: str) -> None:
@@ -93,6 +113,28 @@ def cuda_ms(fn, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def device_busy_ms(fn) -> float:
+    """The card's busy time in one call of fn(), in milliseconds: the sum of
+    the durations of the kernels and copies that torch.profiler records on
+    the device (0.0 if it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def log_idle_share(what, fn, wall_ms):
+    """Print the device's busy time in one more call of fn() beside the
+    call's unprofiled wall time `wall_ms`, and the idle share."""
+    busy = device_busy_ms(fn)
+    share = "not measured (the profiler recorded no device time)" if busy <= 0 else (
+        f"{max(0.0, 1.0 - busy / wall_ms):.3f}")
+    log(f"    {what}: device busy {busy:.3f} ms of a {wall_ms:.3f} ms call; idle share {share}")
 
 
 def phase0_device():
@@ -333,8 +375,10 @@ def phase3_main_path(card):
         raise AssertionError(f"bootstrap median {median} outside {MEDIAN_BAND}")
     if not 0 <= infid < 1e-2:
         raise AssertionError(f"point estimate infidelity {infid} is implausible")
-    if launches < 1:
-        raise AssertionError("the main path never launched the rhor_mle kernel")
+    if launches != 1:
+        raise AssertionError(
+            f"the main path launched rhor_mle {launches} times; the interval's batch "
+            "launches it once and the single-experiment point estimate runs the plain loop")
     if flat_launches != 0:
         raise AssertionError("the main path launched the flat kernel; it dispatches to rhor_mle")
     if audit.off_device:
@@ -357,8 +401,9 @@ def phase3_main_path(card):
         freq = c.reshape(N_POINTS, -1)
         freq = freq / freq.sum(-1, keepdim=True)
         a2 = state_core.weighted_povm_flat(povm, n_meas) * d
-        via_kernel = state_core.estimate_mle_rhor(c, povm, n_meas, init, max_iter=MLE_ITERS)
-        via_plain = kernels.rhor_mle_reference(freq, 0.95 * init + 0.05 * mixed, a2, MLE_ITERS)
+        bloch0 = (0.95 * init + 0.05 * mixed).contiguous()
+        via_kernel = kernels.rhor_mle(freq.contiguous(), bloch0, a2.contiguous(), MLE_ITERS)
+        via_plain = kernels.rhor_mle_reference(freq, bloch0, a2, MLE_ITERS)
         for name, blochs in (("kernel", via_kernel), ("plain", via_plain)):
             hs[name, dtype] = bootstrap_core._distance_batch(
                 "hs", blochs, bloch_est, N_QUBITS).double()
@@ -449,7 +494,9 @@ def flat_kernel_on_main_path():
 
 def _fixed_draw_hs(tmg, est, seed):
     """hs distances to `est` of one fixed draw of N_POINTS resamples,
-    estimated through state_core.estimate_mle_rhor in float32 and float64."""
+    estimated by RrhoR-60 through kernels.rhor_mle (the lane kernel, or the
+    flat one where it is swapped in) in float32 and float64."""
+    from quantpy_tpu_torch.ops import kernels
     from quantpy_tpu_torch.tomography import bootstrap_core, state_core
 
     gen = torch.Generator(device=tmg.device)
@@ -462,7 +509,12 @@ def _fixed_draw_hs(tmg, est, seed):
         n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=tmg.device)
         c = counts.to(dtype)
         init = state_core.estimate_lin(c, povm, n_meas)
-        blochs = state_core.estimate_mle_rhor(c, povm, n_meas, init, max_iter=MLE_ITERS)
+        d = 2**N_QUBITS
+        freq = c.reshape(N_POINTS, -1)
+        freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+        bloch0 = state_core._mixed_start(init, d, 0.05).contiguous()
+        a2 = (state_core.weighted_povm_flat(povm, n_meas) * d).contiguous()
+        blochs = kernels.rhor_mle(freq, bloch0, a2, MLE_ITERS)
         hs[dtype] = bootstrap_core._distance_batch("hs", blochs, bloch_est, N_QUBITS).double()
     return hs
 
@@ -546,6 +598,285 @@ def phase5_flat_path(card, tmg, est):
     return flat_launches
 
 
+def _reset_launches():
+    from quantpy_tpu_torch.ops import kernels
+
+    kernels.rhor_mle.launches = 0
+    kernels.rhor_mle_flat.launches = 0
+
+
+def _check_no_kernel_and_on_card(audit, what):
+    """Neither RrhoR kernel launched since `_reset_launches`, and `audit`
+    saw no operation off the card."""
+    from quantpy_tpu_torch.ops import kernels
+
+    launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    log(f"    {what}: rhor_mle / rhor_mle_flat launches {launched}; aten ops audited: "
+        f"{audit.n_ops}")
+    if launched != (0, 0):
+        raise AssertionError(f"{what} launched an RrhoR kernel: {launched}")
+    if audit.off_device:
+        raise AssertionError(f"{what}: operations off the card: {sorted(audit.off_device)}")
+
+
+def _check_distances(sample, n_points, what):
+    import numpy as np
+
+    median = float(np.median(sample))
+    if sample.shape != (n_points,) or not np.all(np.isfinite(sample)):
+        raise AssertionError(f"{what}: distances not finite or of the wrong shape")
+    if not MEDIAN_BAND[0] <= median <= MEDIAN_BAND[1]:
+        raise AssertionError(f"{what}: median {median} outside {MEDIAN_BAND}")
+    return median
+
+
+def phase6_cholesky_mle(card):
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
+
+    log("[6] Cholesky MLE ('mle', batched L-BFGS) on the card")
+    tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=606)  # the default device, float32
+    tmg.experiment(N_SHOTS, "proj-set")
+    est = tmg.point_estimate("mle")
+    constr = tmg.point_estimate("mle-constr")
+    infid = float(qtt.if_dst(est, qtt.GHZ(N_QUBITS)))
+    log(f"    point estimate 'mle' on {tmg.device} ({tmg.dtype}): infidelity to GHZ-4 "
+        f"{infid:.3e}; 'mle-constr' equal: {np.array_equal(constr.bloch, est.bloch)}")
+    if not np.array_equal(constr.bloch, est.bloch):
+        raise AssertionError("'mle-constr' differs from 'mle'")
+    if not 0 <= infid < 1e-2:
+        raise AssertionError(f"'mle' point estimate infidelity {infid} is implausible")
+
+    n_points, max_iter = 1024, 100
+    _reset_launches()
+    audit = DeviceAudit()
+    t0 = time.perf_counter()
+    with audit:
+        interval = qtt.BootstrapStateInterval(
+            tmg, n_points=n_points, method="mle", max_iter=max_iter, key=6, state=est
+        )
+        dists, _ = interval((0.5, 0.9, 0.99))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    median = _check_distances(interval.distances, n_points, "'mle' bootstrap")
+    log(f"    BootstrapStateInterval('mle', {n_points} resamples, max_iter {max_iter}): hs at "
+        f"(0.5, 0.9, 0.99) {[float(x) for x in dists]}; median {median:.4e}; first run "
+        f"{wall:.2f} s with the audit on")
+    _check_no_kernel_and_on_card(audit, "the 'mle' bootstrap")
+
+    # 'mle' beside RrhoR-60 on one fixed draw
+    dev = tmg.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(66)
+    counts = tmg.simulate_batch(n_points, state=est, generator=gen)
+    povm = torch.as_tensor(tmg.povm_matrix, dtype=tmg.dtype, device=dev)
+    n_meas = torch.as_tensor(tmg.n_measurements, dtype=tmg.dtype, device=dev)
+    chol = state_core.estimate(counts, povm, n_meas, method="mle", max_iter=max_iter)
+    rhor = state_core.estimate(counts, povm, n_meas, method="mle-rhor", max_iter=MLE_ITERS)
+    f64 = torch.float64
+    a = state_core.weighted_povm_flat(povm.to(f64), n_meas.to(f64))
+    freq = counts.to(f64).reshape(n_points, -1)
+    freq = freq / freq.sum(-1, keepdim=True)
+
+    def nll(blochs):  # float32 rounding leaves some zero probabilities just below 0
+        probs = (blochs.to(f64) @ a.T * 2**N_QUBITS).clamp(min=0.0)
+        return -(freq * torch.log(probs + 1e-10)).sum(-1)
+
+    nll_chol, nll_rhor = nll(chol), nll(rhor)
+    gap = nll_chol - nll_rhor
+    apart = bootstrap_core._distance_batch("hs", chol.to(f64), rhor.to(f64), N_QUBITS)
+    log(f"    fixed draw of {n_points}: median NLL 'mle' {float(nll_chol.median()):.9f}, "
+        f"RrhoR-{MLE_ITERS} {float(nll_rhor.median()):.9f}; NLL 'mle' - NLL RrhoR-{MLE_ITERS} "
+        f"per resample (float64 of the float32 estimates): median {float(gap.median()):.3e}, "
+        f"min {float(gap.min()):.3e}, "
+        f"max {float(gap.max()):.3e}; hs apart: median {float(apart.median()):.3e}, "
+        f"max {float(apart.max()):.3e}")
+    if not bool(torch.isfinite(gap).all()):
+        raise AssertionError("the fixed draw's likelihoods are not finite")
+
+    # both maximize the same likelihood: agreement in float64 at 2 qubits
+    tmg2 = qtt.StateTomograph(qtt.GHZ(2), key=4, dtype=f64)
+    tmg2.experiment(5000, "proj-set")
+    b_chol = tmg2.estimate_batch(tmg2.results, "mle", max_iter=300, tol=1e-6)
+    b_rhor = tmg2.estimate_batch(tmg2.results, "mle-rhor", max_iter=3000)
+    hs2 = float(qtt.hs_dst(qtt.Qobj(b_chol.cpu().numpy()), qtt.Qobj(b_rhor.cpu().numpy())))
+    log(f"    float64, GHZ-2, 5000 shots: hs('mle' max_iter 300 tol 1e-6, 'mle-rhor' 3000) "
+        f"{hs2:.3e} (limit 5e-4)")
+    if not hs2 < 5e-4:
+        raise AssertionError(f"'mle' and 'mle-rhor' disagree in float64: hs {hs2}")
+
+    bloch_est = est.bloch_tensor(dev, tmg.dtype)
+
+    def call():
+        return bootstrap_core.bootstrap_distances(
+            gen, bloch_est, povm, n_meas, n_points=n_points, method="mle", max_iter=max_iter
+        )
+
+    ms = cuda_ms(call, 3)
+    log(f"    bootstrap_distances('mle'), {n_points} resamples, max_iter {max_iter}: best of 3 "
+        f"{ms:.3f} ms = {n_points / ms * 1e3:.1f} resamples/s on {card}")
+    log_idle_share("the 'mle' bootstrap call", call, ms)
+
+
+def _kron_dense_checks():
+    """The kron chains, lin and RrhoR at 4 qubits against the dense path."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import kron_core, state_core
+
+    n, dev = 4, torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(44)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-8)):
+        povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=dtype, device=dev)
+        povm = torch.as_tensor(qtt.generate_measurement_matrix("proj-set", n), dtype=dtype,
+                               device=dev)
+        n_meas = torch.full((povm.shape[0],), float(N_SHOTS), dtype=dtype, device=dev)
+        truth = qtt.GHZ(n).bloch_tensor(dev, dtype)
+        counts = kron_core.kron_simulate(gen, povm1, truth.expand(64, -1), N_SHOTS)
+        freq = counts / counts.sum(-1, keepdim=True)
+        blochs = state_core.estimate_lin(counts, povm, n_meas)
+        errs = {
+            "probs": kron_core.kron_probs(povm1, n, blochs)
+            - state_core.experiment_probabilities(povm, blochs),
+            "adjoint": kron_core.kron_apply_adjoint(povm1, n, freq)
+            - torch.einsum("zmp,mpd->zd", freq, povm),
+        }
+        if dtype == torch.float64:
+            errs["lin"] = (kron_core.kron_estimate_lin(counts, povm1, n)
+                           - state_core.estimate_lin(counts, povm, n_meas))
+            init = kron_core.kron_estimate_lin(counts, povm1, n)
+            w2 = state_core.weighted_povm_flat(povm, n_meas) * 2**n
+            plain = kernels.rhor_mle_reference(
+                freq.reshape(64, -1) / freq.shape[-2], state_core._mixed_start(init, 2**n, 0.05),
+                w2, MLE_ITERS)
+            errs["rhor"] = kron_core.kron_estimate_mle_rhor(
+                counts, povm1, n, max_iter=MLE_ITERS, tol=0.0) - plain
+        errs = {k: float(v.abs().max()) for k, v in errs.items()}
+        log(f"    n={n} {str(dtype).removeprefix('torch.')}: kron - dense max|delta| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {tol:.0e})")
+        if not all(math.isfinite(v) and v <= tol for v in errs.values()):
+            raise AssertionError(f"the kron path disagrees with the dense one: {errs}")
+
+
+def _scaling_row(n, povm1, truth, gen):
+    """bench.py's scaling row at n qubits: one 10^4-shot simulation, lin and
+    MLE-60 of it, CUDA-event times, hs to the truth, peak memory."""
+    from quantpy_tpu_torch.tomography import bootstrap_core, kron_core
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def timed(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end)
+        return result
+
+    counts = timed("simulate_ms", lambda: kron_core.kron_simulate(gen, povm1, truth, N_SHOTS))
+    kron_core.kron_estimate_lin(counts, povm1, n)  # warm
+    lin = timed("lin_ms", lambda: kron_core.kron_estimate_lin(counts, povm1, n))
+    mle = timed("mle60_ms",
+                lambda: kron_core.kron_estimate_mle_rhor(counts, povm1, n, max_iter=MLE_ITERS))
+    out["lin_hs"] = float(bootstrap_core._distance_batch("hs", lin, truth, n))
+    out["mle_hs"] = float(bootstrap_core._distance_batch("hs", mle, truth, n))
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["counts_shape"] = list(counts.shape)
+    return out
+
+
+def phase7_kron(card):
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.tomography import kron_core
+
+    log("[7] the kron-factored path on the card")
+    _kron_dense_checks()
+
+    tmg = qtt.StateTomograph(qtt.GHZ(6), key=6)  # the default device, float32
+    tmg.experiment(N_SHOTS, "proj-set")
+    if not (tmg.kron_mode and tmg.povm_matrix is None and tmg.results.shape == (729, 64)):
+        raise AssertionError("StateTomograph(GHZ(6)) with proj-set is not in kron mode")
+    hs = {}
+    for method in ("lin", "mle-rhor"):
+        hs[method] = float(qtt.hs_dst(tmg.point_estimate(method), tmg.state))
+    log(f"    StateTomograph(GHZ(6)), proj-set, {N_SHOTS} shots: kron mode, counts "
+        f"{tmg.results.shape}; hs to the truth: lin {hs['lin']:.4e}, mle-rhor "
+        f"{hs['mle-rhor']:.4e}")
+    if not (math.isfinite(hs["lin"]) and 0 <= hs["mle-rhor"] < TRUTH_HS_LIMIT):
+        raise AssertionError(f"6-qubit point estimates off the truth: {hs}")
+    est6 = tmg.reconstructed_state
+
+    n_points = 256
+    _reset_launches()
+    audit = DeviceAudit()
+    with audit:
+        interval = qtt.BootstrapStateInterval(
+            tmg, n_points=n_points, method="mle", max_iter=MLE_ITERS, key=61, state=est6
+        )
+        interval()
+        torch.cuda.synchronize()
+    median = _check_distances(interval.distances, n_points, "the 6-qubit bootstrap")
+    log(f"    6-qubit BootstrapStateInterval('mle', {n_points}, RrhoR-{MLE_ITERS}): median hs "
+        f"{median:.4e}")
+    _check_no_kernel_and_on_card(audit, "the 6-qubit bootstrap")
+
+    dev, dtype = tmg.device, tmg.dtype
+    povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(60)
+    b6 = est6.bloch_tensor(dev, dtype)
+
+    def run6():
+        return kron_core.kron_bootstrap_distances(
+            gen, b6, povm1, 6, N_SHOTS, n_points=n_points, method="mle", max_iter=MLE_ITERS)
+
+    ms = cuda_ms(run6, 3)
+    log(f"    6-qubit bootstrap ('mle', {n_points} resamples, RrhoR-{MLE_ITERS}): best of 3 "
+        f"{ms:.3f} ms = {n_points / ms * 1e3:.1f} resamples/s on {card}")
+    log_idle_share("the 6-qubit bootstrap call", run6, ms)
+
+    rows = {}
+    for n in KRON_SCALING:
+        truth = qtt.GHZ(n).bloch_tensor(dev, dtype)
+        gen.manual_seed(100 + n)
+        rows[n] = row = _scaling_row(n, povm1, truth, gen)
+        log(f"    scaling n={n} counts {tuple(row['counts_shape'])}: simulate "
+            f"{row['simulate_ms']:.3f} ms, lin {row['lin_ms']:.3f} ms, MLE-{MLE_ITERS} "
+            f"{row['mle60_ms']:.3f} ms; hs to the truth lin {row['lin_hs']:.4e}, MLE "
+            f"{row['mle_hs']:.4e}; peak memory {row['peak_mib']:.1f} MiB on {card}")
+        if not 0 <= row["mle_hs"] < TRUTH_HS_LIMIT:
+            raise AssertionError(
+                f"{n}-qubit MLE hs to the truth {row['mle_hs']} (limit {TRUTH_HS_LIMIT})")
+
+    # bench.py's large bootstrap, centred on the lin estimate as there
+    n, n_points = KRON_BOOT
+    gen.manual_seed(110)
+    counts = kron_core.kron_simulate(gen, povm1, qtt.GHZ(n).bloch_tensor(dev, dtype), N_SHOTS)
+    center = kron_core.kron_estimate_lin(counts, povm1, n)
+    del counts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dists = kron_core.kron_bootstrap_distances(
+        gen, center, povm1, n, N_SHOTS, n_points=n_points, method="mle", max_iter=MLE_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not bool(torch.isfinite(dists).all()):
+        raise AssertionError(f"{n}-qubit bootstrap distances are not finite")
+    log(f"    {n}-qubit bootstrap ('mle', {n_points} resamples, RrhoR-{MLE_ITERS}): "
+        f"{seconds:.3f} s = {n_points / seconds:.3f} resamples/s, median hs "
+        f"{float(dists.median()):.4e} on {card}")
+    log("    scaling rows: " + json.dumps({str(k): v for k, v in rows.items()}))
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -555,6 +886,8 @@ def main() -> int:
     tmg, est, launches = phase3_main_path(card)
     phase4_rate(card, tmg, est)
     flat_launches = phase5_flat_path(card, tmg, est)
+    phase6_cholesky_mle(card)
+    phase7_kron(card)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:288", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:205", flat_launches),

@@ -1,10 +1,15 @@
 """quantpy_tpu_torch — the PyTorch/CUDA port of quantpy_tpu.
 
-This slice carries the bootstrapped RrhoR-MLE main path: POVM designs,
+It carries the state estimators of the JAX package: POVM designs,
 multinomial simulation, linear inversion with the eigh clip, the RrhoR
-fixed point (a hand-written CUDA kernel on the GPU), distances, the
-StateTomograph and the bootstrap interval. The package picks no device:
-the default is the CPU, and GPU work is asked for with ``device="cuda"``.
+fixed point ('mle-rhor'; a hand-written CUDA kernel on the GPU for float32
+batches), the Cholesky-parametrized MLE by batched L-BFGS ('mle',
+'mle-constr'), distances, the StateTomograph and the bootstrap interval.
+Designs of 6 or more qubits run on the kron-factored chains
+(`tomography.kron_core`), which never materialize the POVM.
+
+The default device is the card, ``cuda`` (`config.get_device()`); CPU work
+is asked for with ``config.set_device("cpu")`` or ``device="cpu"``.
 """
 
 from . import config

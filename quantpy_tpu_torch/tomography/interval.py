@@ -17,7 +17,7 @@ import torch
 
 from ..ops.geometry import hs_dst, if_dst, trace_dst
 from ..qobj import Qobj
-from . import bootstrap_core
+from . import bootstrap_core, kron_core
 from .state import make_generator
 
 __all__ = ["ConfidenceInterval", "BootstrapStateInterval", "Mode"]
@@ -39,6 +39,18 @@ def _interp1d(x, y):
         return np.interp(np.asarray(q, dtype=np.float64), xs, ys)
 
     return f
+
+
+def _require_uniform_kron_shots(tmg, what: str):
+    """The kron-factored paths weight every POVM by 1/m, which holds only
+    for uniform shots. Counts injected through the `results` setter make
+    n_measurements the row sums, which may differ: reject those."""
+    n = np.asarray(tmg.n_measurements, dtype=np.float64)
+    if n.ndim and not np.allclose(n, n.flat[0]):
+        raise NotImplementedError(
+            f"{what} on the kron-factored path assumes uniform per-POVM "
+            "shot counts; non-uniform injected results need a dense design"
+        )
 
 
 class ConfidenceInterval(ABC):
@@ -110,9 +122,36 @@ class BootstrapStateInterval(ConfidenceInterval):
         dst_name = {hs_dst: "hs", trace_dst: "trace", if_dst: "if"}.get(self.tmg.dst)
         device, dtype = self.tmg.device, self.tmg.dtype
         generator = make_generator(17 if self.key is None else self.key, device)
+        bloch_est = torch.as_tensor(self.state.bloch, dtype=dtype, device=device)
+        if self.tmg.kron_mode:
+            if dst_name is None:
+                raise NotImplementedError(
+                    "custom distance callables are not supported on the "
+                    "kron-factored bootstrap path (hs/trace/if only)"
+                )
+            _require_uniform_kron_shots(self.tmg, "BootstrapStateInterval")
+            dist = kron_core.kron_bootstrap_distances(
+                generator, bloch_est,
+                torch.as_tensor(self.tmg.povm_kron, dtype=dtype, device=device),
+                self.tmg.state.n_qubits, float(self.tmg.n_measurements[0]),
+                n_points=self.n_points, method=self.method, dst=dst_name,
+                max_iter=self.max_iter, physical=self.physical, init=self.init,
+            )
+            dist = dist.cpu().numpy().astype(np.float64)
+        else:
+            dist = self._dense_distances(generator, bloch_est, dst_name)
+        self.distances = np.sort(dist)
+        self.cl_to_dist = _interp1d(
+            np.linspace(0, 1, len(self.distances)), self.distances
+        )
+
+    def _dense_distances(self, generator, bloch_est, dst_name):
+        """The bootstrap distances on the materialized design, as float64
+        numpy; a custom distance runs on the host."""
+        device, dtype = self.tmg.device, self.tmg.dtype
         args = (
             generator,
-            torch.as_tensor(self.state.bloch, dtype=dtype, device=device),
+            bloch_est,
             torch.as_tensor(self.tmg.povm_matrix, dtype=dtype, device=device),
             torch.as_tensor(self.tmg.n_measurements, dtype=dtype, device=device),
         )
@@ -122,12 +161,7 @@ class BootstrapStateInterval(ConfidenceInterval):
         )
         if dst_name is not None:
             dist = bootstrap_core.bootstrap_distances(*args, dst=dst_name, **options)
-            dist = dist.cpu().numpy().astype(np.float64)
-        else:  # custom host distance: device estimates, host metric
-            blochs = bootstrap_core.bootstrap_blochs(*args, **options)
-            blochs = blochs.cpu().numpy().astype(np.float64)
-            dist = np.asarray([self.tmg.dst(Qobj(b), self.state) for b in blochs])
-        self.distances = np.sort(dist)
-        self.cl_to_dist = _interp1d(
-            np.linspace(0, 1, len(self.distances)), self.distances
-        )
+            return dist.cpu().numpy().astype(np.float64)
+        blochs = bootstrap_core.bootstrap_blochs(*args, **options)
+        blochs = blochs.cpu().numpy().astype(np.float64)
+        return np.asarray([self.tmg.dst(Qobj(b), self.state) for b in blochs])

@@ -170,3 +170,75 @@ def test_flat_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         kernels.rhor_mle_flat(freq, bloch0, w2.cpu(), n_iter=2)
     assert kernels.rhor_mle_flat.launches == before
+
+
+def _cpu_and_card(counts, povm, n_meas, dtype):
+    """The same arrays as (CPU tensors, card tensors) in `dtype`."""
+    cpu = tuple(x.to("cpu", dtype) for x in (counts, povm, n_meas))
+    return cpu, tuple(x.to("cuda") for x in cpu)
+
+
+def test_float64_rhor_runs_the_plain_loop(cuda):
+    """A float64 batch runs the plain loop on the card, which stops at `tol`
+    as the CPU path does; only float32 batches reach the kernel."""
+    counts, povm, n_meas = _problem(cuda, 3, 5, torch.float64, seed=31)
+    cpu, card = _cpu_and_card(counts, povm, n_meas, torch.float64)
+    before = kernels.rhor_mle.launches
+    on_card = state_core.estimate(*card, method="mle-rhor", max_iter=200, tol=1e-3)
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle.launches == before
+    on_cpu = state_core.estimate(*cpu, method="mle-rhor", max_iter=200, tol=1e-3)
+    assert on_card.device.type == "cuda" and on_card.shape == (5, 64)
+    assert float((on_card.cpu() - on_cpu).abs().max()) <= TOL[torch.float64]
+
+
+def test_single_experiment_point_estimate_runs_the_plain_loop(cuda):
+    """StateTomograph.point_estimate('mle-rhor') estimates one experiment:
+    the plain loop on the card, equal to the CPU's on the same counts."""
+    from quantpy_tpu_torch import interop
+
+    tmg = qtt.StateTomograph(qtt.GHZ(3), key=7, device="cuda", dtype=torch.float32)
+    tmg.experiment(2000, "proj-set")
+    on_cpu = interop.tomograph_from_arrays(
+        **interop.to_numpy(tmg), device="cpu", dtype=torch.float32
+    )
+    before = kernels.rhor_mle.launches
+    est = tmg.point_estimate("mle-rhor")
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle.launches == before
+    assert abs(est.bloch - on_cpu.point_estimate("mle-rhor").bloch).max() <= TOL[torch.float32]
+
+
+def test_kron_chains_on_the_card_match_the_cpu(cuda):
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.tomography import kron_core
+
+    povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=torch.float64)
+    gen = torch.Generator().manual_seed(4)
+    for n in (4, 5):
+        bloch = torch.randn(3, 4**n, generator=gen, dtype=torch.float64) / 4**n
+        c = torch.rand(3, 3**n, 2**n, generator=gen, dtype=torch.float64)
+        for fn, x in ((kron_core.kron_forward_flat, bloch), (kron_core.kron_apply_adjoint, c)):
+            on_card = fn(povm1.to(cuda), n, x.to(cuda))
+            assert float((on_card.cpu() - fn(povm1, n, x)).abs().max()) <= 1e-10
+        counts = (c * 1000).round()
+        on_card = kron_core.kron_estimate_mle_rhor(counts.to(cuda), povm1.to(cuda), n,
+                                                   max_iter=20, tol=0.0)
+        on_cpu = kron_core.kron_estimate_mle_rhor(counts, povm1, n, max_iter=20, tol=0.0)
+        assert float((on_card.cpu() - on_cpu).abs().max()) <= 1e-10
+
+
+def test_cholesky_mle_on_the_card_matches_the_cpu_likelihood(cuda):
+    counts, povm, n_meas = _problem(cuda, 2, 8, torch.float64, seed=41)
+    cpu, card = _cpu_and_card(counts, povm, n_meas, torch.float64)
+    before = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    on_card = state_core.estimate(*card, method="mle")
+    torch.cuda.synchronize()
+    assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == before
+    on_cpu = state_core.estimate(*cpu, method="mle")
+    a = state_core.weighted_povm_flat(cpu[1], cpu[2])
+    freq = cpu[0].reshape(8, -1)
+    freq = freq / freq.sum(-1, keepdim=True)
+    nll_card = state_core.nll_bloch(on_card.cpu(), a, freq, 2)
+    nll_cpu = state_core.nll_bloch(on_cpu, a, freq, 2)
+    assert float((nll_card - nll_cpu).abs().max()) <= 1e-9

@@ -138,12 +138,6 @@ def test_tomograph_experiment_warm_start_and_results(float64):
     np.testing.assert_allclose(tmg.n_measurements, [800.0] * 9 + [1200.0] * 9)
 
 
-def test_dense_limit_names_roadmap():
-    tmg = qtt.StateTomograph(qtt.zero(6))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmg.experiment(100, "proj-set")
-
-
 def test_port_never_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|quantpy_tpu)\b", re.MULTILINE)
     files = sorted((REPO / "quantpy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -106,13 +106,6 @@ def test_estimate_dispatch_matches_jax(float64):
     np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL64)
 
 
-@pytest.mark.parametrize("method", ["mle", "mle-constr"])
-def test_cholesky_mle_not_ported_names_roadmap(method):
-    counts, povm, n_meas = _counts(1, 1, seed=6)
-    with pytest.raises(NotImplementedError, match="A7"):
-        state_core.estimate(_t(counts), _t(povm), _t(n_meas), method=method)
-
-
 def test_rhor_reference_matches_pallas_interpret(monkeypatch):
     """n = 4, B = 8, 40 iterations, float32, as tests/test_kernels.py runs it."""
     import jax.experimental.pallas as pl

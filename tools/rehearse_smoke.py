@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Rehearse chip_smoke.py's phases 6 and 7 on the CPU, without a card.
+
+    python tools/rehearse_smoke.py [--phases 67] [--scaling 6]
+
+The port runs on the CPU, CUDA events and synchronization are replaced by
+host clocks, the kron scaling rows shrink to the qubit counts given, and
+the large kron bootstrap to 4 resamples at 6 qubits. What it prints are
+CPU readings: they check control flow, shapes and numerics, never the
+card's times. It also prints how many L-BFGS evaluations (value and
+gradient of the whole batch) phase 6 ran.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+class _HostEvent:
+    """Stands in for torch.cuda.Event: the host clock at record()."""
+
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="67", help="which of phases 6 and 7 to run")
+    parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
+    args = parser.parse_args()
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from quantpy_tpu_torch import config
+    from quantpy_tpu_torch.ops import lbfgs
+
+    config.set_device("cpu")
+    chip_smoke.DEVICE = "cpu"
+    chip_smoke.KRON_SCALING = tuple(int(n) for n in args.scaling.split(","))
+    chip_smoke.KRON_BOOT = (6, 4)
+    torch.cuda.Event = _HostEvent
+    torch.cuda.synchronize = lambda *_: None
+    torch.cuda.reset_peak_memory_stats = lambda *_: None
+    torch.cuda.max_memory_allocated = lambda *_: 0
+    chip_smoke.log_idle_share = lambda *_: None
+
+    evaluations = 0
+    value_and_grad = lbfgs._value_and_grad
+
+    def counted(fun, x):
+        nonlocal evaluations
+        evaluations += 1
+        return value_and_grad(fun, x)
+
+    lbfgs._value_and_grad = counted
+    card = "the CPU (rehearsal, not a device reading)"
+    if "6" in args.phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase6_cholesky_mle(card)
+        print(f"phase 6: {time.perf_counter() - t0:.1f} s on the CPU; "
+              f"L-BFGS evaluations {evaluations}")
+    if "7" in args.phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase7_kron(card)
+        print(f"phase 7: {time.perf_counter() - t0:.1f} s on the CPU")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,6 +46,19 @@ non-zero exit code, and nothing falls back to the CPU:
    scaling rows (6, 8, 10, 11 qubits: simulate, lin and MLE-60 times, hs to
    the truth, peak memory); bench.py's 10-qubit 16-resample bootstrap rate.
 
+8. Process tomography on the card (no kernel of its own): at 2 qubits in
+   float64 all four estimators of ProcessTomograph(depolarizing(0.1, 2))
+   and the Newton-Schulz CP engine against eigh; lifp, the projection with
+   both engines and states_to_choi_bloch on the card against the CPU on one
+   set of counts; the launch counts of method='states' (one rhor_mle launch
+   with 'mle-rhor' in float32, none with 'lin'); then the 4-qubit process
+   bootstrap of bench.py (depolarizing(0.1, 4), 256 proj4 inputs, proj-set,
+   2,000 shots per POVM, lifp + CPTP, 256 resamples, float32): audited for
+   devices, float64 operations and kernel launches (none), each resampled
+   Choi matrix checked for TP and CP, its rate, stage times, peak memory,
+   idle share and the projection's TFLOP/s; and a 3-qubit 64-resample
+   bootstrap on the 'eigh' engine (time and peak memory only).
+
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -95,6 +108,27 @@ KRON_BOOT = (10, 16)
 # an estimate's hs distance to the true state must stay under this (the JAX
 # package's TPU record is 0.0020-0.0035 at 6-11 qubits: a sanity band only)
 TRUTH_HS_LIMIT = 0.01
+# Phase 8. The flagship process bootstrap is bench.py's: qubits, shots per
+# POVM, resamples. The JAX package records a median hs distance of
+# 0.547-0.552 for it on its own draws (docs/benchmarks.md), and this script
+# first read 0.5492 and 0.5494 on an H100: PROC_MEDIAN_BAND is a sanity band
+# around both.
+PROC_FLAGSHIP = (4, 2_000, 256)
+PROC_MEDIAN_BAND = (0.45, 0.65)
+PROC_EIGH_ROW = (3, 2_000, 64)  # qubits, shots, resamples of the 'eigh' engine row
+PROC_SMALL_SHOTS = 10_000
+# hs of a 2-qubit estimate from 10^4 shots to the true Choi matrix (trace 4):
+# 0.05-0.08 over the four methods on the CPU in float64
+PROC_SMALL_HS_LIMIT = 0.15
+# 'dys' and 'pgdb' stop by different rules near one optimum: their raw-count
+# NLLs lay 6e-7 and 2.5e-6 apart, relatively, on two seeds on the CPU in float64
+PROC_NLL_REL = 1e-5
+# ||Tr_out C - I||_F of a resampled Choi matrix: the bootstrap's 50 capped
+# Dykstra iterations leave ~1.5e-2 (||I||_F = 4), far under the resamples'
+# distances
+PROC_TP_TOL = 5e-2
+PROC_MIN_EIG = -1e-4
+STATES_RHOR_LAUNCHES = 1  # rhor_mle launches of method='states' with 'mle-rhor' in float32
 
 
 def log(msg: str) -> None:
@@ -318,6 +352,7 @@ class DeviceAudit(TorchDispatchMode):
         super().__init__()
         self.n_ops = 0
         self.off_device: set[str] = set()
+        self.wide: set[str] = set()  # operations on float64 / complex128 tensors
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -325,8 +360,12 @@ class DeviceAudit(TorchDispatchMode):
         self.n_ops += 1
         if name not in self.COPIES:
             for t in tree_flatten((args, kwargs, out))[0]:
-                if isinstance(t, torch.Tensor) and t.dim() > 0 and t.device.type != DEVICE:
+                if not (isinstance(t, torch.Tensor) and t.dim() > 0):
+                    continue
+                if t.device.type != DEVICE:
                     self.off_device.add(f"{name} ({t.device})")
+                if t.dtype in (torch.float64, torch.complex128):
+                    self.wide.add(name)
         return out
 
 
@@ -877,6 +916,255 @@ def phase7_kron(card):
     log("    scaling rows: " + json.dumps({str(k): v for k, v in rows.items()}))
 
 
+def _process_small_checks():
+    """Phase 8, parts 1-3: the 2-qubit estimators in float64, the card
+    against the CPU on one set of counts, and the launch counts of
+    method='states'."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.ops.paulis import bloch_to_matrix
+    from quantpy_tpu_torch.tomography import process_core, state_core
+
+    f32, f64 = torch.float32, torch.float64
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=81, dtype=f64)  # the default device
+    tmg.experiment(PROC_SMALL_SHOTS)
+    if tmg.device.type != DEVICE or tmg._design()[0].device.type != DEVICE:
+        raise AssertionError(f"ProcessTomograph's default device is not {DEVICE}: {tmg.device}")
+    truth = tmg.channel.choi
+    nll, seconds = {}, {}
+    for method in ("lifp", "states", "dys", "pgdb"):
+        t0 = time.perf_counter()
+        est = tmg.point_estimate(method)
+        seconds[method] = time.perf_counter() - t0
+        hs = float(qtt.hs_dst(est.choi, truth))
+        nll[method] = float(tmg._nll(est.choi.bloch))
+        log(f"    2 qubits float64 {method:6s}: hs to the true Choi {hs:.4e} (limit "
+            f"{PROC_SMALL_HS_LIMIT}), NLL {nll[method]:.6f}, {seconds[method]:.2f} s")
+        if not est.is_cptp(verbose=False):
+            raise AssertionError(f"the 2-qubit '{method}' estimate is not CPTP")
+        if not 0 <= hs < PROC_SMALL_HS_LIMIT:
+            raise AssertionError(f"the 2-qubit '{method}' estimate lies {hs} from the truth")
+    rel = abs(nll["dys"] - nll["pgdb"]) / abs(nll["pgdb"])
+    log(f"    'dys' and 'pgdb' likelihoods: relative difference {rel:.3e} "
+        f"(limit {PROC_NLL_REL:.0e})")
+    if not rel <= PROC_NLL_REL:
+        raise AssertionError(f"'dys' and 'pgdb' disagree in NLL: {rel}")
+
+    counts, b, povm, n_meas = tmg._design()
+    raw = process_core.estimate_lifp_factored(counts, b, povm, n_meas, cptp=False)
+    by_eigh = process_core.cptp_project_bloch(raw, 2000, 1e-14, "eigh")
+    by_ns = process_core.cptp_project_bloch(raw, 2000, 1e-14, "ns")
+    norm = float(torch.linalg.matrix_norm(bloch_to_matrix(raw, 4)))
+    gap = float(torch.linalg.matrix_norm(bloch_to_matrix(by_ns - by_eigh, 4)))
+    log(f"    cptp_project_bloch 'ns' against 'eigh': ||delta||_F {gap:.3e}, "
+        f"||A||_F {norm:.3e} (limit 1e-5 ||A||)")
+    if not gap <= 1e-5 * norm:
+        raise AssertionError(f"the Newton-Schulz projection lies {gap} from eigh's")
+
+    # the same functions on the card and on the CPU, on one set of counts
+    dec = tmg._decomposed_single_entries
+    for dtype, name in ((f64, "float64"), (f32, "float32")):
+        host = tuple(x.to("cpu", dtype) for x in (counts, b, povm, n_meas))
+        start = process_core.estimate_lifp_factored(*host, cptp=False)
+
+        def run(device):
+            c, bb, pv, nm = (x.to(device) for x in host)
+            out = {
+                "lifp": process_core.estimate_lifp_factored(c, bb, pv, nm, cptp=False),
+                "states_to_choi_bloch": process_core.states_to_choi_bloch(
+                    state_core.estimate_lin(c, pv, nm), dec),
+            }
+            for cp in ("eigh", "ns"):
+                # one start and a fixed count of iterations for both devices
+                out[f"projection {cp}"] = process_core.cptp_project_bloch_host(
+                    start.to(device), max_iter=50, chunk=50, cp=cp)
+            return out
+
+        on_cpu, on_card = run("cpu"), run(DEVICE)
+        for key, value in on_card.items():
+            if value.dtype != dtype or value.device.type != DEVICE:
+                raise AssertionError(f"{key} returned {value.dtype} on {value.device}")
+        errs = {k: float((v.cpu() - on_cpu[k]).abs().max()) for k, v in on_card.items()}
+        log(f"    card against CPU, {name}: max|delta| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {TOL[name]:.0e})")
+        if not all(math.isfinite(v) and v <= TOL[name] for v in errs.values()):
+            raise AssertionError(f"the card disagrees with the CPU in {name}: {errs}")
+
+    # 'states' hands one float32 batch (S, D) of output states to the estimator
+    tmg32 = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=83, dtype=f32)
+    tmg32.experiment(PROC_SMALL_SHOTS)
+    launches = 0
+    for est_method, expected in (("mle-rhor", STATES_RHOR_LAUNCHES), ("lin", 0)):
+        _reset_launches()
+        est = tmg32.point_estimate("states", states_est_method=est_method)
+        launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+        hs = float(qtt.hs_dst(est.choi, tmg32.channel.choi))
+        log(f"    method='states' with '{est_method}', 2 qubits float32: rhor_mle / "
+            f"rhor_mle_flat launches {launched} (expected ({expected}, 0)); hs to the truth "
+            f"{hs:.4e}")
+        if launched != (expected, 0):
+            raise AssertionError(f"'states' with '{est_method}' launched {launched}")
+        if not (np.isfinite(hs) and hs < PROC_SMALL_HS_LIMIT):
+            raise AssertionError(f"'states' with '{est_method}' lies {hs} from the truth")
+        launches += launched[0]
+
+    # the idle share of a small point estimate: one host sync per Dykstra iteration
+    tmg.point_estimate("lifp")
+    ms = cuda_ms(lambda: tmg.point_estimate("lifp"), 1)
+    log_idle_share("2-qubit point_estimate('lifp'), float64", lambda: tmg.point_estimate("lifp"),
+                   ms)
+    return launches
+
+
+def _process_flagship(card):
+    """Phase 8, part 4: bench.py's 4-qubit process bootstrap on the card."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops import paulis
+    from quantpy_tpu_torch.tomography import bootstrap_core, process_core
+
+    n, shots, n_points = PROC_FLAGSHIP
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 matrix products are on; the Newton-Schulz chain needs them off")
+    t0 = time.perf_counter()
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=7)  # default device, float32
+    tmg.experiment(shots)
+    t1 = time.perf_counter()
+    center = tmg.point_estimate("lifp")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hs_truth = float(qtt.hs_dst(center.choi, tmg.channel.choi))
+    log(f"    ProcessTomograph(depolarizing(0.1, {n})) on {tmg.device} ({tmg.dtype}): "
+        f"{len(tmg.tomographs)} inputs, counts {tmg.results.shape}; construction + experiment "
+        f"{t1 - t0:.2f} s, point_estimate('lifp') {t2 - t1:.2f} s, CPTP "
+        f"{center.is_cptp(atol=1e-3, verbose=False)}, hs to the true Choi {hs_truth:.4e}")
+    if tmg.device.type != DEVICE or tmg.dtype != torch.float32:
+        raise AssertionError(f"the flagship tomograph runs on {tmg.device} in {tmg.dtype}")
+    if not (center.is_cptp(atol=1e-3, verbose=False) and math.isfinite(hs_truth)):
+        raise AssertionError("the 4-qubit lifp point estimate is not CPTP to 1e-3")
+
+    _reset_launches()
+    audit = DeviceAudit()
+    with audit:
+        audited = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=8)
+        audited.setup()
+        torch.cuda.synchronize()
+    _check_no_kernel_and_on_card(audit, "the process bootstrap")
+    log(f"    float64 / complex128 operations in it: {sorted(audit.wide) or 'none'}")
+    if audit.wide:
+        raise AssertionError(f"float64 operations in the float32 bootstrap: {sorted(audit.wide)}")
+
+    # two seeds, each a new interval, timed whole
+    quantiles, best_ms = [], math.inf
+    levels = (0.5, 0.9)
+    for seed in (9, 10):
+        interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(interval.setup, 1)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        best_ms = min(best_ms, ms)
+        sample = interval.distances
+        if sample.shape != (n_points,) or not np.all(np.isfinite(sample)):
+            raise AssertionError("process bootstrap distances not finite or of the wrong shape")
+        quantiles.append(interval(levels)[0])
+        log(f"    BootstrapProcessInterval(lifp + CPTP, {n_points} resamples), seed {seed}: "
+            f"{ms:.3f} ms, hs at {levels} {[float(x) for x in quantiles[-1]]}, median "
+            f"{float(np.median(sample)):.4e}, peak memory {peak_mib:.1f} MiB")
+        if not PROC_MEDIAN_BAND[0] <= float(np.median(sample)) <= PROC_MEDIAN_BAND[1]:
+            raise AssertionError(
+                f"process bootstrap median {np.median(sample)} outside {PROC_MEDIAN_BAND}")
+    spread = float(np.max(np.abs(quantiles[0] - quantiles[1]) / quantiles[1]))
+    log(f"    quantiles of the two seeds differ by {spread:.3%} (limit 10%)")
+    if not spread <= 0.10:
+        raise AssertionError(f"the two seeds' quantiles differ by {spread}")
+    log(f"    process bootstrap, {n} qubits x {len(tmg.tomographs)} inputs x 81 POVMs x {shots} "
+        f"shots x {n_points} resamples, float32: best of 2 {best_ms:.3f} ms = "
+        f"{n_points / best_ms * 1e3:.2f} resamples/s on {card}")
+
+    # the stages of one call, and every resampled Choi matrix
+    interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=11, channel=center)
+    gen = torch.Generator(device=tmg.device)
+    gen.manual_seed(11)
+    design = tmg._design()[1:]  # input blochs, POVM, shots
+    iters, chunk = 50 if n <= 4 else 100, 50
+    counts = interval.simulate(gen)
+    raw = process_core.estimate_lifp_factored(counts, *design, cptp=False)
+    chois = interval.estimate(counts)
+    ref = tmg._tensor(center.choi.bloch)
+    stages = {
+        "simulate": lambda: interval.simulate(gen),
+        "raw_lifp": lambda: process_core.estimate_lifp_factored(counts, *design, cptp=False),
+        "ns_dykstra_projection": lambda: process_core.cptp_project_bloch_host(
+            raw, max_iter=iters, chunk=chunk, cp="ns"),
+        "distance": lambda: bootstrap_core._distance_batch("hs", chois, ref, 2 * n),
+    }
+    times = {name: cuda_ms(fn, 2) for name, fn in stages.items()}
+    dim = 4**n
+    tflop = 39 * 8 * dim**3 * iters * n_points / 1e12  # 2 x 19 sign-chain products + 1 for |A|
+    rate = tflop / times["ns_dykstra_projection"] * 1e3
+    log("    stages (ms, best of 2): " + json.dumps({k: round(v, 3) for k, v in times.items()}))
+    log(f"    NS-Dykstra projection: {tflop:.2f} TFLOP of complex {dim}-dim products in "
+        f"{times['ns_dykstra_projection']:.3f} ms = {rate:.2f} TFLOP/s "
+        f"({rate * 1e12 / PEAK_FLOPS['float32']:.3f} of the {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s float32 peak) on {card}")
+    if chois.dtype != torch.float32 or chois.device.type != DEVICE:
+        raise AssertionError(f"the projection returned {chois.dtype} on {chois.device}")
+    mats = paulis.bloch_to_matrix(chois, 2 * n)
+    eye = torch.eye(2**n, dtype=mats.dtype, device=mats.device)
+    tp_err = float(torch.linalg.matrix_norm(paulis.ptrace(mats, range(n)) - eye).max())
+    min_eig = float(torch.linalg.eigvalsh(mats[:8].to(torch.complex128)).min())
+    log(f"    resampled Choi matrices: max ||Tr_out C - I||_F {tp_err:.3e} (limit "
+        f"{PROC_TP_TOL:.0e}) over {n_points}; least eigenvalue of the first 8 {min_eig:.3e} "
+        f"(limit {PROC_MIN_EIG:.0e})")
+    if not tp_err <= PROC_TP_TOL:
+        raise AssertionError(f"a resampled Choi matrix is off TP by {tp_err}")
+    if not min_eig >= PROC_MIN_EIG:
+        raise AssertionError(f"a resampled Choi matrix has eigenvalue {min_eig}")
+
+    def call():
+        qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=12, channel=center).setup()
+
+    log_idle_share("the process bootstrap call", call, best_ms)
+
+
+def _process_eigh_row(card):
+    """Phase 8, part 5: a bootstrap on the 'eigh' engine (the default below
+    4 qubits), one batched eigh per Dykstra iteration; time and peak memory
+    only."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+
+    n, shots, n_points = PROC_EIGH_ROW
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=5)
+    tmg.experiment(shots)
+    ms_point = cuda_ms(lambda: tmg.point_estimate("lifp"), 1)
+    interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(interval.setup, 1)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if not np.all(np.isfinite(interval.distances)):
+        raise AssertionError(f"{n}-qubit process bootstrap distances are not finite")
+    log(f"    {n}-qubit process bootstrap on the 'eigh' engine ({n_points} resamples, {shots} "
+        f"shots, up to 2000 Dykstra iterations of a batched {4**n}-dim eigh): "
+        f"point_estimate('lifp') {ms_point:.1f} ms, bootstrap {ms:.1f} ms = "
+        f"{n_points / ms * 1e3:.3f} resamples/s, median hs "
+        f"{float(np.median(interval.distances)):.4e}, peak memory {peak_mib:.1f} MiB on {card}")
+
+
+def phase8_process(card):
+    log("[8] process tomography on the card")
+    launches = _process_small_checks()
+    _process_flagship(card)
+    _process_eigh_row(card)
+    return launches
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -888,9 +1176,10 @@ def main() -> int:
     flat_launches = phase5_flat_path(card, tmg, est)
     phase6_cholesky_mle(card)
     phase7_kron(card)
+    launches += phase8_process(card)
     sources = {
-        "rhor_mle": ("quantpy_tpu/ops/kernels.py:288", launches),
-        "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:205", flat_launches),
+        "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
+        "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),
     }
     kernels_line = {"kernels": [
         {

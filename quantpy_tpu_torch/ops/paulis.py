@@ -27,6 +27,8 @@ __all__ = [
     "PAULI_1",
     "PTM_MAX_QUBITS",
     "n_qubits_from_dim",
+    "generate_pauli",
+    "pauli_transpose_signs",
     "pauli_transfer_matrix",
     "bloch_to_matrix",
     "matrix_to_bloch",
@@ -34,6 +36,8 @@ __all__ = [
     "np_matrix_to_bloch",
     "vec",
     "unvec",
+    "kron_all",
+    "ptrace",
 ]
 
 _PAULI_1_NP = np.array(
@@ -70,6 +74,29 @@ def _pauli_basis_np(n_qubits: int) -> np.ndarray:
     for _ in range(n_qubits - 1):
         basis = np.kron(basis, _PAULI_1_NP)
     return basis
+
+
+def generate_pauli(n_qubits: int, dtype=None, device=None) -> torch.Tensor:
+    """The dense Pauli basis as one (4^n, 2^n, 2^n) complex tensor, of the
+    precision of the real dtype `dtype`, on `device` (defaults: the
+    port's)."""
+    return torch.as_tensor(
+        _pauli_basis_np(n_qubits),
+        dtype=complex_dtype(dtype or rdtype()),
+        device=device or get_device(),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def pauli_transpose_signs(n_qubits: int) -> np.ndarray:
+    """(4^n,) signs s with P_a^T = s_a P_a: -1 iff the multi-index holds an
+    odd number of Y factors, so bloch(rho^T) = signs * bloch(rho)."""
+    idx = np.arange(4**n_qubits)
+    y_count = np.zeros(4**n_qubits, dtype=np.int64)
+    for _ in range(n_qubits):
+        y_count += (idx % 4) == 2
+        idx //= 4
+    return np.where(y_count % 2 == 1, -1.0, 1.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,6 +196,34 @@ def unvec(vector: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`vec`."""
     d = int(round(math.sqrt(vector.shape[-1])))
     return vector.reshape(tuple(vector.shape[:-1]) + (d, d)).transpose(-1, -2)
+
+
+def kron_all(matrices) -> torch.Tensor:
+    """Kronecker product of a sequence of matrices, left to right."""
+    out = torch.as_tensor(matrices[0])
+    for m in matrices[1:]:
+        out = torch.kron(out, torch.as_tensor(m, device=out.device))
+    return out
+
+
+def ptrace(matrix: torch.Tensor, keep, n_qubits: int | None = None) -> torch.Tensor:
+    """Partial trace keeping the qubits in `keep` (in ascending order), with
+    leading batch dimensions."""
+    matrix = torch.as_tensor(matrix)
+    n = n_qubits_from_dim(matrix.shape[-1]) if n_qubits is None else n_qubits
+    keep = sorted(int(k) for k in keep)
+    traced = [i for i in range(n) if i not in keep]
+    batch_shape = tuple(matrix.shape[:-2])
+    bdim = len(batch_shape)
+    t = matrix.reshape(batch_shape + (2,) * (2 * n))
+    # row axes bdim..bdim+n-1, column axes bdim+n..bdim+2n-1; each trace
+    # removes one of either, so later positions shift
+    for idx, q in enumerate(traced):
+        row_ax = bdim + (q - sum(1 for t_ in traced[:idx] if t_ < q))
+        col_ax = row_ax + (n - idx)
+        t = torch.diagonal(t, dim1=row_ax, dim2=col_ax).sum(-1)
+    d_keep = 2 ** len(keep)
+    return t.reshape(batch_shape + (d_keep, d_keep))
 
 
 # Host-side (numpy) forms of the factored transforms, used by Qobj.

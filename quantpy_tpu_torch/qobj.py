@@ -109,6 +109,20 @@ class Qobj(BaseQuantum):
         d = 2 ** len(keep)
         return Qobj(rho.reshape(d, d))
 
+    def schmidt(self):
+        """Schmidt decomposition of a pure bipartite state: the SVD of the
+        ket reshaped to (2^(n/2), 2^(n/2))."""
+        half_dim = 2 ** (self.n_qubits // 2)
+        return np.linalg.svd(np.reshape(self.ket(), (half_dim, half_dim)))
+
+    def eig(self):
+        """Eigenvalues and right eigenvectors (columns)."""
+        return np.linalg.eig(self.matrix)
+
+    def eigh(self):
+        """Hermitian eigendecomposition (ascending eigenvalues)."""
+        return np.linalg.eigh(self.matrix)
+
     def is_density_matrix(self, verbose: bool = True) -> bool:
         """Hermitian, positive semi-definite and of unit trace."""
         m = self.matrix
@@ -129,6 +143,10 @@ class Qobj(BaseQuantum):
                 print("Trace is not 1", file=sys.stderr)
         return False
 
+    def trace(self):
+        """Matrix trace."""
+        return np.trace(self.matrix)
+
     def impurity(self):
         """1 - Tr(rho^2)."""
         return 1 - np.trace(self.matrix @ self.matrix)
@@ -139,8 +157,69 @@ class Qobj(BaseQuantum):
             verbose=False
         )
 
+    def ket(self) -> np.ndarray:
+        """Ket vector of a pure state (the eigenvector of the largest
+        eigenvalue)."""
+        if not self.is_pure():
+            raise ValueError("Quantum object is not pure")
+        return np.linalg.eigh(self.matrix)[1][:, -1]
+
     def __repr__(self):
         return "Quantum object\n" + repr(self.matrix)
+
+    def _repr_latex_(self):
+        """Compact LaTeX matrix rendering for notebooks."""
+        return _matrix_to_latex("Quantum object: ", self.matrix)
+
+
+def _format_entry(z: complex) -> str:
+    atol = 1e-4
+
+    def fmt(x: float) -> str:
+        if x == 0.0:
+            return "0.0"
+        if abs(x) >= 1000.0 or abs(x) < 0.001:
+            return f"{x:.3e}".replace("e", r"\times10^{") + "}"
+        if abs(x - round(x)) < 0.001:
+            return f"{x:.1f}"
+        return f"{x:.3f}"
+
+    re, im = np.real(z), np.imag(z)
+    if abs(im) < atol:
+        return fmt(re)
+    if abs(re) < atol:
+        return fmt(im) + "j"
+    sign = "+" if im > 0 else ""
+    return f"({fmt(re)}{sign}{fmt(im)}j)"
+
+
+def _matrix_to_latex(prefix: str, m: np.ndarray, max_rows: int = 10) -> str:
+    """Render a (possibly truncated) matrix as a LaTeX array."""
+    rows, cols = m.shape
+    if rows > max_rows or cols > max_rows:
+        r_idx = list(range(5)) + [None] + list(range(rows - 5, rows))
+        c_idx = list(range(5)) + [None] + list(range(cols - 5, cols))
+    else:
+        r_idx = list(range(rows))
+        c_idx = list(range(cols))
+    body_rows = []
+    for r in r_idx:
+        cells = []
+        for c in c_idx:
+            if r is None:
+                cells.append(r"\ddots" if c is None else r"\vdots")
+            elif c is None:
+                cells.append(r"\cdots")
+            else:
+                cells.append(_format_entry(m[r, c]))
+        body_rows.append(" & ".join(cells))
+    body = r"\\".join(body_rows)
+    return (
+        prefix
+        + r"\begin{equation*}\left(\begin{array}{*{11}c}"
+        + body
+        + r"\\\end{array}\right)\end{equation*}"
+    )
 
 
 def fully_mixed(n_qubits: int = 1) -> Qobj:

@@ -1,6 +1,13 @@
-"""State tomography: the functional core, the bootstrap and the user API."""
+"""State and process tomography: the functional cores, the bootstraps and
+the user API."""
 
-from .interval import BootstrapStateInterval
+from .interval import BootstrapProcessInterval, BootstrapStateInterval
+from .process import ProcessTomograph
 from .state import StateTomograph
 
-__all__ = ["StateTomograph", "BootstrapStateInterval"]
+__all__ = [
+    "StateTomograph",
+    "ProcessTomograph",
+    "BootstrapStateInterval",
+    "BootstrapProcessInterval",
+]

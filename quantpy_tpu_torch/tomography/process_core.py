@@ -1,0 +1,715 @@
+"""Functional core of quantum process tomography (port of
+quantpy_tpu/tomography/process_core.py, without its Kraus parametrization
+and anchored likelihoods, which only the MHMC intervals use).
+
+Everything runs in the Choi bloch representation: the Choi matrix of an
+n-qubit channel is a Hermitian operator on 2n qubits, hence a real vector
+of length 16^n. In the Pauli product basis P_a (x) P_b (input factor
+first) the TP constraint Tr_out(C) = I fixes the 4^n coefficients c[(a, 0)]
+(1/2^n at a = 0, zero elsewhere), and the measurement model is one real
+product: p[s, o] = A[s, o] . c with rows 4^n kron(bloch(rho_s^T), w_o).
+
+Batch-first functions on tensors. Each follows the dtype and device of its
+main tensor argument; numpy inputs get the port's defaults (see `config`).
+Loops whose length depends on the data run on the host and read their stop
+criterion from the device: once per iteration, or once per `chunk`
+iterations where the function takes a `chunk`.
+
+Shape conventions:
+- input_blochs_t: (S, D) bloch vectors of the transposed input states,
+  D = 4^n
+- povm_matrix: (m, p, D); counts: (..., S, m, p)
+- choi_bloch: (..., D2) with D2 = 16^n
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..config import as_real, complex_dtype, rdtype
+from ..ops.paulis import bloch_to_matrix, matrix_to_bloch, pauli_transpose_signs
+from . import state_core
+
+__all__ = [
+    "measurement_operator",
+    "process_probabilities",
+    "simulate_process_experiment",
+    "choi_apply_bloch",
+    "np_choi_apply_bloch",
+    "tp_project_bloch",
+    "cp_project_bloch",
+    "cp_project_bloch_ns",
+    "default_cptp_tol",
+    "cptp_project_bloch",
+    "cptp_project_bloch_host",
+    "estimate_lifp",
+    "estimate_lifp_factored",
+    "process_nll",
+    "process_nll_factored",
+    "states_to_choi_bloch",
+    "pgdb_prepare",
+    "pgdb_factored_step",
+    "estimate_pgdb",
+    "estimate_pgdb_factored",
+    "dys_factored_chunk",
+    "estimate_dys_factored",
+]
+
+_CP_EPS = 1e-12  # eigenvalue floor of the CP projection, probability floor of the logs
+
+
+def _n_from_d2(d2: int) -> int:
+    n = int(round(math.log(d2, 16)))
+    if 16**n != d2:
+        raise ValueError(f"Invalid Choi bloch dimension {d2}")
+    return n
+
+
+def measurement_operator(input_blochs_t, povm_matrix, n_measurements):
+    """The real process-measurement matrix A: (S*K, 16^n), with rows
+    4^n * kron(bloch(rho_s^T), w_o) over (input state s, weighted flattened
+    POVM row o)."""
+    input_blochs_t = as_real(input_blochs_t)
+    w = state_core.weighted_povm_flat(as_real(povm_matrix, like=input_blochs_t), n_measurements)
+    d = input_blochs_t.shape[-1]
+    s, k = input_blochs_t.shape[0], w.shape[0]
+    rows = torch.einsum("sd,ke->skde", input_blochs_t, w).reshape(s * k, -1)
+    return rows * d
+
+
+def process_probabilities(a_matrix, choi_bloch):
+    """p = A @ c, batched over the leading axes of choi_bloch."""
+    return choi_bloch @ a_matrix.T
+
+
+def simulate_process_experiment(generator, povm_matrix, output_blochs, n_measurements):
+    """Simulate state tomography of every channel output state in one call.
+
+    output_blochs: (..., S, D) bloch vectors of the channel applied to each
+    input state. Returns counts (..., S, m, p) on their device; `generator`
+    must live there too."""
+    return state_core.simulate_experiment(generator, povm_matrix, output_blochs, n_measurements)
+
+
+def _choi_apply_core(choi_bloch, in_blochs, signs):
+    """The channel action in bloch space, for numpy arrays and tensors.
+
+    C = sum_ab c[a,b] P_a (x) P_b acts by Phi(rho) = Tr_in[(rho^T (x) I) C];
+    with rho = sum_x r_x P_x and Tr(rho^T P_a) = s_a r_a 2^n (s the Pauli
+    transpose signs) this is bloch_out[b] = 2^n sum_a s_a r_a c[a, b]."""
+    d2 = choi_bloch.shape[-1]
+    d1 = int(round(math.sqrt(d2)))
+    n = int(round(math.log(d1, 4)))
+    c = choi_bloch.reshape(tuple(choi_bloch.shape[:-1]) + (d1, d1))
+    return (2**n) * ((in_blochs * signs)[..., None, :] @ c)[..., 0, :]
+
+
+def choi_apply_bloch(choi_bloch, in_blochs):
+    """Apply channel(s) to state(s), all in bloch space.
+
+    choi_bloch: (..., 16^n) Choi bloch vector(s); in_blochs: (..., 4^n)
+    state bloch vector(s); the batch axes broadcast. Returns (..., 4^n)."""
+    choi_bloch = as_real(choi_bloch)
+    in_blochs = as_real(in_blochs, like=choi_bloch)
+    n = int(round(math.log(in_blochs.shape[-1], 4)))
+    signs = as_real(pauli_transpose_signs(n), like=choi_bloch)
+    return _choi_apply_core(choi_bloch, in_blochs, signs)
+
+
+def np_choi_apply_bloch(choi_bloch, in_blochs):
+    """Host-numpy twin of :func:`choi_apply_bloch` (Channel.transform uses
+    it for a channel held as a Choi matrix)."""
+    choi_bloch = np.asarray(choi_bloch, dtype=np.float64)
+    in_blochs = np.asarray(in_blochs, dtype=np.float64)
+    n = int(round(math.log(in_blochs.shape[-1], 4)))
+    return _choi_apply_core(choi_bloch, in_blochs, pauli_transpose_signs(n))
+
+
+# -- projections --------------------------------------------------------------
+
+
+def tp_project_bloch(choi_bloch):
+    """Orthogonal projection onto trace-preserving Choi matrices: the
+    coordinates c[(a, 0)] are set to 1/2^n at a = 0 and to 0 elsewhere."""
+    choi_bloch = as_real(choi_bloch)
+    n = _n_from_d2(choi_bloch.shape[-1])
+    d1 = 4**n
+    c = choi_bloch.reshape(tuple(choi_bloch.shape[:-1]) + (d1, d1)).clone()
+    c[..., :, 0] = 0.0
+    c[..., 0, 0] = 1.0 / (2**n)
+    return c.reshape(choi_bloch.shape)
+
+
+def _eigh_psd_mat(a):
+    """PSD projection of Hermitian matrices: eigh, eigenvalues floored at
+    1e-12, recomposed."""
+    evals, evecs = torch.linalg.eigh(a)
+    evals = evals.clamp(min=_CP_EPS)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+def cp_project_bloch(choi_bloch):
+    """Projection onto completely positive (PSD-Choi) maps by eigh."""
+    choi_bloch = as_real(choi_bloch)
+    n2 = 2 * _n_from_d2(choi_bloch.shape[-1])  # the Choi matrix lives on 2n qubits
+    return matrix_to_bloch(_eigh_psd_mat(bloch_to_matrix(choi_bloch, n2)))
+
+
+_NS_SAFETY = 0.99  # keep t * u_max <= 0.99 * sqrt(3): g_t sign-preserving
+
+
+@functools.lru_cache(maxsize=None)
+def _ns_schedule(ns_iter: int) -> tuple:
+    """Per-step scaling factors t_k for the scaled cubic Newton-Schulz sign
+    iteration S <- g_t(S) with g_t(x) = (t x)(3 - (t x)^2)/2.
+
+    Unscaled NS grows small eigenvalues by 1.5x per step; pre-scaling by t
+    grows them by 1.5 t (up to ~2.57x at t ~= 0.99*sqrt(3)) while the cap
+    t*u <= 0.99*sqrt(3) keeps g_t sign-preserving on the whole spectral
+    envelope [l, u]. The schedule comes from a greedy envelope
+    optimization: at each step pick the t that maximizes the worst-case
+    image min(g_t(l), g_t(u)), then append two unscaled polish steps. The
+    resolvable floor l0 is chosen by bisection so that the schedule has
+    ns_iter steps; at the default 19 the floor is ~7e-7 * ||A||_F.
+    """
+    if ns_iter <= 2:
+        return (1.0,) * ns_iter
+
+    def g(x, t):
+        y = t * x
+        return 0.5 * y * (3.0 - y * y)
+
+    def greedy(l0):
+        l, u = l0, 1.0
+        ts = []
+        for _ in range(4 * ns_iter + 8):
+            cand = np.linspace(1.0, np.sqrt(3.0) * _NS_SAFETY / u, 2001)
+            worst = np.minimum(g(l, cand), g(u, cand))
+            t = float(cand[np.argmax(worst)])
+            xs = np.linspace(l, u, 2001)
+            ys = g(xs, t)
+            l, u = float(ys.min()), float(ys.max())
+            ts.append(t)
+            if l >= 0.97:
+                break
+        return ts
+
+    lo, hi = -40.0, np.log10(0.97)  # log10 of the resolvable floor
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        if len(greedy(10.0**mid)) > ns_iter - 2:
+            lo = mid
+        else:
+            hi = mid
+    ts = greedy(10.0**hi)[: ns_iter - 2]
+    return tuple(ts) + (1.0,) * (ns_iter - len(ts))
+
+
+def _ns_sign(s, eye, ns_iter: int):
+    """Scaled-schedule cubic Newton-Schulz sign iteration (see
+    `_ns_schedule`): S <- Y (3 I - Y Y) / 2 with Y = t_k S, written as
+    S (1.5 t I - 0.5 t^3 S S): two matrix products and one elementwise pass
+    per step."""
+    for t in _ns_schedule(ns_iter):
+        s = s @ torch.add(eye * (1.5 * t), s @ s, alpha=-0.5 * t**3)
+    return s
+
+
+def _ns_psd_mat(a, ns_iter: int):
+    """PSD projection of Hermitian matrices by the matrix sign function,
+    matrix products only: max(A, 0) = (A + A sign(A)) / 2, with sign(A) from
+    the scaled Newton-Schulz iteration started at A / ||A||_F. Eigenvalues
+    under the schedule's floor (~7e-7 ||A||_F at 19 steps) keep about half
+    their magnitude."""
+    fro = torch.linalg.matrix_norm(a, keepdim=True)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    sign = _ns_sign(a / fro.clamp(min=1e-30), eye, ns_iter)
+    psd = 0.5 * (a + a @ sign)
+    return 0.5 * (psd + psd.conj().transpose(-1, -2))
+
+
+def cp_project_bloch_ns(choi_bloch, ns_iter: int = 19):
+    """CP projection by the Newton-Schulz sign iteration (`_ns_psd_mat`)
+    instead of an eigendecomposition; equal to `cp_project_bloch` to about
+    1e-5 * ||A||."""
+    choi_bloch = as_real(choi_bloch)
+    n2 = 2 * _n_from_d2(choi_bloch.shape[-1])
+    return matrix_to_bloch(_ns_psd_mat(bloch_to_matrix(choi_bloch, n2), ns_iter))
+
+
+def default_cptp_tol(tol: float | None = None, dtype=None) -> float:
+    """The Dykstra tolerance floored at the working precision of `dtype`
+    (default: `config.rdtype()`). The stop criterion is the squared
+    correction increment, so the floor is eps^1.5; under it a float32 run
+    never stops before its iteration cap."""
+    eps = float(torch.finfo(dtype or rdtype()).eps)
+    return max(eps**1.5, 0.0 if tol is None else tol)
+
+
+def _tp_project_mat(c):
+    """Matrix-space twin of `tp_project_bloch`: the orthogonal projection
+    onto Tr_out(C) = I is C + ((I - Tr_out C)/d_out) (x) I_out, input factor
+    first."""
+    d_in = int(round(math.sqrt(c.shape[-1])))
+    c4 = c.reshape(tuple(c.shape[:-2]) + (d_in, d_in, d_in, d_in))
+    tr_out = torch.diagonal(c4, dim1=-3, dim2=-1).sum(-1)
+    eye = torch.eye(d_in, dtype=c.dtype, device=c.device)
+    corr = (eye - tr_out) / d_in
+    return (c4 + corr[..., :, None, :, None] * eye[:, None, :]).reshape(c.shape)
+
+
+def _dykstra_step(x, p, q, cp_fn=None):
+    """One textbook two-set Dykstra update in bloch space; returns
+    (x, p, q, max crit over the batch)."""
+    cp_fn = cp_fn or cp_project_bloch
+    s = x + p
+    y = tp_project_bloch(s)
+    p_new = s - y
+    t = y + q
+    x_new = cp_fn(t)
+    q_new = t - x_new
+    crit = ((p_new - p) ** 2).sum(-1) + ((q_new - q) ** 2).sum(-1)
+    return x_new, p_new, q_new, crit.max()
+
+
+def _dykstra_step_mat(xm, pm, qm, ns_iter: int, scale: float):
+    """The same update on the Choi matrices, with the Newton-Schulz CP
+    projection; the criterion is scaled by `scale` = 2^-2n to the bloch
+    form's."""
+    s = xm + pm
+    y = _tp_project_mat(s)
+    pm_new = s - y
+    t = y + qm
+    xm_new = _ns_psd_mat(t, ns_iter)
+    qm_new = t - xm_new
+    crit = ((pm_new - pm).abs() ** 2).sum((-2, -1)) + ((qm_new - qm).abs() ** 2).sum((-2, -1))
+    return xm_new, pm_new, qm_new, crit.max() * scale
+
+
+def _dykstra_run(x, p, q, n_steps: int, chunk: int, tol, cp: str, ns_iter: int):
+    """At most `n_steps` Dykstra iterations from the bloch-space state
+    (x, p, q). After every `chunk` of them the criterion of the last one is
+    read on the host, and the run ends once it is not above `tol` (`tol`
+    None: never read, all `n_steps` run). The 'eigh' engine steps in bloch
+    space; the 'ns' engine steps on the matrices and maps back at the end.
+    Returns (x, p, q, crit) in bloch space."""
+    if cp == "ns":
+        n2 = 2 * _n_from_d2(x.shape[-1])
+        state = tuple(bloch_to_matrix(v, n2) for v in (x, p, q))
+        step = functools.partial(_dykstra_step_mat, ns_iter=ns_iter, scale=1.0 / 2**n2)
+    else:
+        state = (x, p, q)
+        step = _dykstra_step
+    crit = torch.full((), math.inf, dtype=x.dtype, device=x.device)
+    done = 0
+    while done < n_steps:
+        for _ in range(min(chunk, n_steps - done)):
+            *state, crit = step(*state)
+        done += chunk
+        if tol is not None and float(crit) <= tol:
+            break
+    if cp == "ns":
+        state = tuple(matrix_to_bloch(v) for v in state)
+    return (*state, crit)
+
+
+def _dykstra_chunk(x, p, q, n_steps: int, cp: str = "eigh", ns_iter: int = 19):
+    """Exactly `n_steps` Dykstra iterations from (x, p, q) with the 'eigh'
+    or 'ns' CP engine; returns (x, p, q, crit of the last step)."""
+    return _dykstra_run(x, p, q, n_steps, n_steps, None, cp, ns_iter)
+
+
+def cptp_project_bloch_host(
+    choi_bloch,
+    max_iter: int = 2000,
+    tol: float | None = None,
+    chunk: int | None = None,
+    cp: str = "eigh",
+):
+    """Dykstra alternating projections onto CPTP, batched:
+
+        y_k     = P_TP(x_k + p_k);   p_{k+1} = x_k + p_k - y_k
+        x_{k+1} = P_CP(y_k + q_k);   q_{k+1} = y_k + q_k - x_{k+1}
+
+    Stop: the squared change of both correction increments, maximized over
+    the batch, not above `tol` (floored at the precision of the dtype, see
+    `default_cptp_tol`), or `max_iter` iterations. The criterion is read on
+    the host once every `chunk` iterations (one device sync per chunk), so
+    the iteration count is a multiple of `chunk` unless `max_iter` cuts it.
+    `chunk=None` is 10 for Choi matrices of dimension 4096 and more, else
+    100. `cp` selects the CP engine: exact 'eigh', or 'ns', the
+    Newton-Schulz sign iteration of matrix products (`cp_project_bloch_ns`),
+    which runs on the matrices throughout."""
+    x = as_real(choi_bloch)
+    if chunk is None:
+        mat_dim = int(round(math.sqrt(x.shape[-1])))
+        chunk = 10 if mat_dim >= 4096 else 100
+    zeros = torch.zeros_like(x)
+    tol = default_cptp_tol(tol, x.dtype)
+    return _dykstra_run(x, zeros, zeros, max_iter, chunk, tol, cp, 19)[0]
+
+
+def cptp_project_bloch(
+    choi_bloch, max_iter: int = 2000, tol: float | None = None, cp: str = "eigh"
+):
+    """`cptp_project_bloch_host` with the criterion read after every
+    iteration: it stops at the first iteration whose criterion is not above
+    `tol`."""
+    return cptp_project_bloch_host(choi_bloch, max_iter, tol, chunk=1, cp=cp)
+
+
+# -- model and linear inversion -----------------------------------------------
+
+
+def _frequencies(counts):
+    """(..., S, m, p) counts -> (..., S, K) fractions, normalized per input
+    state."""
+    freq = counts.reshape(tuple(counts.shape[:-2]) + (-1,))
+    return freq / freq.sum(-1, keepdim=True)
+
+
+def estimate_lifp(
+    counts, a_matrix, cptp: bool = True, cptp_iter: int = 2000, cptp_tol: float = 1e-11
+):
+    """Linear-inversion process estimate on the materialized operator A.
+
+    counts: (..., S, m, p); frequencies are normalized per input state.
+    Returns the Choi bloch vector(s)."""
+    counts = as_real(counts)
+    freq = _frequencies(counts)
+    freq = freq.reshape(tuple(freq.shape[:-2]) + (-1,))  # (..., S*K)
+    rhs = freq @ a_matrix
+    d2 = a_matrix.shape[-1]
+    # one factorization of the Gram matrix for every right-hand side
+    sol = torch.linalg.solve(a_matrix.T @ a_matrix, rhs.reshape(-1, d2).T).T
+    choi_bloch = sol.reshape(rhs.shape)
+    if cptp:
+        choi_bloch = cptp_project_bloch(choi_bloch, cptp_iter, cptp_tol)
+    return choi_bloch
+
+
+def process_nll(choi_bloch, a_matrix, unnorm_counts):
+    """Poisson-style NLL: -sum(n_j log(p_j + eps))."""
+    probs = process_probabilities(a_matrix, choi_bloch)
+    return -(unnorm_counts * torch.log(probs + _CP_EPS)).sum(-1)
+
+
+def _pgdb_forward(x, b, w):
+    """A x = 4^n vec(B X W^T): (..., D2) -> (..., S*K), never building A."""
+    d1 = b.shape[-1]
+    xm = x.reshape(tuple(x.shape[:-1]) + (d1, d1))
+    p = d1 * (b @ xm @ w.T)
+    return p.reshape(tuple(x.shape[:-1]) + (-1,))
+
+
+def _pgdb_adjoint(y, b, w):
+    """A^T y = 4^n vec(B^T Y W): (..., S*K) -> (..., D2)."""
+    d1 = b.shape[-1]
+    ym = y.reshape(tuple(y.shape[:-1]) + (b.shape[0], w.shape[0]))
+    g = d1 * (b.T @ ym @ w)
+    return g.reshape(tuple(y.shape[:-1]) + (d1 * d1,))
+
+
+def process_nll_factored(choi_bloch, input_blochs_t, w_flat, unnorm_counts):
+    """Process NLL with the factored measurement product: the same value as
+    `process_nll` on the materialized operator, since p[s,k] = 4^n (B X
+    W^T)[s,k] with B the transposed-input blochs, W the weighted flattened
+    POVM rows and X the (D1, D1)-reshaped Choi bloch. `unnorm_counts`:
+    flattened (S*K,) counts in the row order of `measurement_operator`.
+    Batched over the leading axes of choi_bloch."""
+    choi_bloch = as_real(choi_bloch)
+    b = as_real(input_blochs_t, like=choi_bloch)
+    w = as_real(w_flat, like=choi_bloch)
+    probs = _pgdb_forward(choi_bloch, b, w)
+    return -(as_real(unnorm_counts, like=choi_bloch) * torch.log(probs + _CP_EPS)).sum(-1)
+
+
+def states_to_choi_bloch(output_blochs, dec):
+    """Recombine per-input-state reconstructions into Choi bloch vectors.
+
+    The 'states' method composes each single-entry matrix E_(r,c) in the
+    input basis and its image in the basis of reconstructed output states
+    with the same coefficients dec[e, s]; composition is linear, so
+
+        choi[b, r*d+i, c*d+j] = sum_s dec[(r,c), s] * O[b, s, i, j]
+
+    output_blochs: (..., S, D) reconstructed output-state bloch vectors;
+    dec: (d^2, S) complex decomposition of the single entries in the input
+    basis. Returns (..., D^2) real Choi bloch vectors."""
+    output_blochs = as_real(output_blochs)
+    dec = torch.as_tensor(
+        dec, dtype=complex_dtype(output_blochs.dtype), device=output_blochs.device
+    )
+    d = int(round(math.sqrt(dec.shape[0])))
+    n = int(round(math.log2(d)))
+    o_mats = bloch_to_matrix(output_blochs, n)  # (..., S, d, d)
+    batch = tuple(o_mats.shape[:-3])
+    t = (dec @ o_mats.reshape(batch + (dec.shape[1], d * d))).reshape(batch + (d, d, d, d))
+    # axes (r, c, i, j) -> (r, i, c, j)
+    choi = t.transpose(-3, -2).reshape(batch + (d * d, d * d))
+    return matrix_to_bloch(choi)
+
+
+def estimate_lifp_factored(
+    counts,
+    input_blochs_t,
+    povm_matrix,
+    n_measurements,
+    cptp: bool = True,
+    cptp_iter: int = 2000,
+    cptp_tol: float = 1e-11,
+    cp: str = "eigh",
+):
+    """Linear-inversion process estimate without the (S*K, 16^n) operator.
+
+    A = 4^n (B (x) W) with B the input blochs and W the weighted POVM rows,
+    so its Gram splits, (A^T A) = 16^n (B^T B) (x) (W^T W), and the
+    normal-equation solution is
+
+        Choi[a, b] = (1/4^n) [(B^T B)^{-1} B^T  F  W (W^T W)^{-1}]
+
+    with F the (S, K) frequency table. The same estimate as
+    `estimate_lifp`."""
+    counts = as_real(counts)
+    b = as_real(input_blochs_t, like=counts)  # (S, D1)
+    w = state_core.weighted_povm_flat(as_real(povm_matrix, like=counts), n_measurements)
+    d1 = b.shape[-1]  # 4^n, also the probability trace scale
+    freq = _frequencies(counts)  # (..., S, K)
+    b_pinv = torch.linalg.solve(b.T @ b, b.T)  # (D1, S)
+    w_pinv = torch.linalg.solve(w.T @ w, w.T).T  # (K, D1)
+    choi_mat = b_pinv @ (freq @ w_pinv) / d1
+    choi_bloch = choi_mat.reshape(tuple(choi_mat.shape[:-2]) + (d1 * d1,))
+    if cptp:
+        choi_bloch = cptp_project_bloch(choi_bloch, cptp_iter, cptp_tol, cp)
+    return choi_bloch
+
+
+# -- the likelihood estimators --------------------------------------------------
+
+
+def _pgdb_nll(x, flat, b, w):
+    """The NLL with probabilities capped at 1: exact on the CPTP set, and
+    without the unbounded descent through infeasible iterates."""
+    p = _pgdb_forward(x, b, w).clamp(_CP_EPS, 1.0)
+    return -(flat * torch.log(p)).sum(-1)
+
+
+def _capped_nll_grad(p, flat, adjoint):
+    """Gradient of the capped NLL from the probabilities `p`: terms with
+    p >= 1 contribute nothing."""
+    c = torch.where(p < 1.0, flat / p.clamp(min=_CP_EPS), torch.zeros_like(p))
+    return -adjoint(c)
+
+
+_PGDB_GAMMA = 0.3
+
+
+def _backtrack(nll, x, d_dir, grad):
+    """Armijo halving line search, at most 30 halvings; the whole batch
+    shares one step, halved while any of its members fails the test."""
+    slope = (d_dir * grad).sum(-1)
+    f0 = nll(x)
+    alpha = torch.ones_like(f0)
+    for _ in range(30):
+        if not bool((nll(x + alpha[..., None] * d_dir) - f0 > _PGDB_GAMMA * alpha * slope).any()):
+            break
+        alpha = alpha / 2
+    return alpha
+
+
+def _pgd_step(x, nll, grad_of, mu: float, cptp_iter: int, cptp_tol):
+    """One projected-gradient step (projection and line search) on `nll`;
+    returns (x_new, the largest NLL decrease over the batch)."""
+    grad = grad_of(x)
+    d_dir = cptp_project_bloch(x - grad / mu, cptp_iter, cptp_tol) - x
+    alpha = _backtrack(nll, x, d_dir, grad)
+    x_new = x + alpha[..., None] * d_dir
+    return x_new, (nll(x) - nll(x_new)).max()
+
+
+def _pgd_descend(x, nll, grad_of, mu, max_iter, tol, cptp_iter, cptp_tol):
+    """Projected-gradient descent from `x`: stops once the NLL decrease of a
+    step, maximized over the batch, is not above `tol`. The returned iterate
+    x + alpha*d is not exactly CPTP, so it is projected once more."""
+    for _ in range(int(max_iter)):
+        x, delta = _pgd_step(x, nll, grad_of, mu, cptp_iter, cptp_tol)
+        if not float(delta) > tol:
+            break
+    return cptp_project_bloch(x, cptp_iter, cptp_tol)
+
+
+def _factored_objective(flat, b, w):
+    """(nll, gradient) of the capped NLL through the factored products."""
+
+    def nll(x):
+        return _pgdb_nll(x, flat, b, w)
+
+    def grad_of(x):
+        return _capped_nll_grad(_pgdb_forward(x, b, w), flat, lambda c: _pgdb_adjoint(c, b, w))
+
+    return nll, grad_of
+
+
+def pgdb_factored_step(x, flat, b, w, cptp_iter: int = 1000, cptp_tol=1e-10):
+    """One projected-gradient step with the factored products. Returns
+    (x_new, nll_decrease)."""
+    return _pgd_step(x, *_factored_objective(flat, b, w), 1.5 / b.shape[-1], cptp_iter, cptp_tol)
+
+
+def pgdb_prepare(counts, input_blochs_t, povm_matrix, n_measurements):
+    """Shared setup of the pgdb and dys estimators: (flat frequencies
+    normalized over the whole experiment, B, W, x0), x0 being the Choi bloch
+    of the fully depolarizing channel."""
+    counts = as_real(counts)
+    b = as_real(input_blochs_t, like=counts)  # (S, D1)
+    w = state_core.weighted_povm_flat(as_real(povm_matrix, like=counts), n_measurements)
+    d1 = b.shape[-1]
+    flat = counts.reshape(tuple(counts.shape[:-3]) + (-1,))
+    flat = flat / flat.sum(-1, keepdim=True)
+    x0 = counts.new_zeros(tuple(flat.shape[:-1]) + (d1 * d1,))
+    x0[..., 0] = 1.0 / d1
+    return flat, b, w, x0
+
+
+def estimate_pgdb_factored(
+    counts,
+    input_blochs_t,
+    povm_matrix,
+    n_measurements,
+    max_iter: int = 1000,
+    tol: float = 1e-10,
+    cptp_iter: int = 1000,
+    cptp_tol: float = 1e-10,
+    init_bloch=None,
+):
+    """Projected-gradient process MLE with factored measurement products.
+
+    The algorithm and fixed point of `estimate_pgdb`, but the operator
+    A = 4^n (B (x) W) is never materialized: with the Choi bloch x viewed
+    as a (D1, D1) matrix X,
+
+        A x   = 4^n vec(B X W^T)        (probabilities)
+        A^T y = 4^n vec(B^T Y W)        (gradient pullback)
+
+    Batched over the leading axes of `counts`. `init_bloch` starts the
+    descent there instead of at the fully depolarizing channel (for
+    instance at the lifp estimate)."""
+    flat, b, w, x = pgdb_prepare(counts, input_blochs_t, povm_matrix, n_measurements)
+    if init_bloch is not None:
+        x = as_real(init_bloch, like=x).expand(x.shape)
+    return _pgd_descend(
+        x, *_factored_objective(flat, b, w), 1.5 / b.shape[-1], max_iter, tol, cptp_iter,
+        cptp_tol,
+    )
+
+
+def estimate_pgdb(
+    counts,
+    a_matrix,
+    max_iter: int = 1000,
+    tol: float = 1e-10,
+    cptp_iter: int = 1000,
+    cptp_tol: float = 1e-10,
+):
+    """Projected gradient descent with backtracking on the process NLL, on
+    the materialized operator A ('pgdb').
+
+    The frequencies are normalized over the whole experiment and the step
+    is mu = 1.5/4^n (arXiv:1803.10062, eq. 6); the log is capped at p = 1
+    (see `_pgdb_nll`); the loop stops when the NLL decrease of a step is not
+    above `tol`, and starts at the fully depolarizing channel."""
+    counts = as_real(counts)
+    flat = counts.reshape(tuple(counts.shape[:-3]) + (-1,))
+    flat = flat / flat.sum(-1, keepdim=True)
+    d2 = a_matrix.shape[-1]
+    n = _n_from_d2(d2)
+    x0 = counts.new_zeros(tuple(flat.shape[:-1]) + (d2,))
+    x0[..., 0] = 1.0 / (4**n)
+
+    def nll(x):
+        probs = process_probabilities(a_matrix, x).clamp(_CP_EPS, 1.0)
+        return -(flat * torch.log(probs)).sum(-1)
+
+    def grad_of(x):
+        return _capped_nll_grad(process_probabilities(a_matrix, x), flat, lambda c: c @ a_matrix)
+
+    return _pgd_descend(x0, nll, grad_of, 1.5 / (4**n), max_iter, tol, cptp_iter, cptp_tol)
+
+
+def dys_factored_chunk(z, flat, b, w, gamma, n_steps: int, cp: str = "eigh"):
+    """`n_steps` Davis-Yin three-operator-splitting iterations.
+
+    Solves min NLL(x) + I_CP(x) + I_TP(x) with one CP projection per
+    iteration (arXiv:1504.01032):
+
+        x_g = P_CP(z)
+        x_h = P_TP(2 x_g - z - gamma * grad NLL(x_g))
+        z  += x_h - x_g
+
+    Returns (z, x_g, nll(x_g)). `cp='ns'` takes the Newton-Schulz CP
+    projection: its inexactness enters the splitting additively, and the
+    caller's closing Dykstra projection restores feasibility."""
+    cp_fn = cp_project_bloch_ns if cp == "ns" else cp_project_bloch
+    nll, grad_of = _factored_objective(flat, b, w)
+    for _ in range(int(n_steps)):
+        x_g = cp_fn(z)
+        x_h = tp_project_bloch(2 * x_g - z - gamma * grad_of(x_g))
+        z = z + (x_h - x_g)
+    x_g = cp_fn(z)
+    return z, x_g, nll(x_g)
+
+
+def estimate_dys_factored(
+    counts,
+    input_blochs_t,
+    povm_matrix,
+    n_measurements,
+    max_iter: int = 10000,
+    tol: float | None = None,
+    chunk: int | None = None,
+    gamma: float | None = None,
+    init_bloch=None,
+    cp: str | None = None,
+):
+    """Process MLE by Davis-Yin splitting with factored products: the
+    constrained optimum of pgdb with one CP projection per iteration
+    instead of a Dykstra loop per gradient step.
+
+    The NLL, maximized over the batch, is read every `chunk` iterations,
+    and the loop stops when its decrease over a chunk is not above
+    `tol * chunk` (`tol` default: 1e-13 in float64, 1e-9 in float32).
+    `chunk` defaults to 500 below 5 qubits; from 5 qubits up to 200 with
+    'eigh', and with 'ns' to 500 at 5 qubits and 20 above. `gamma` is the
+    splitting step (default 0.5/4^n). `cp` selects the CP engine; the
+    default is 'ns' from 5 qubits up and 'eigh' below. A closing Dykstra
+    projection of 200 iterations squares away the TP residual."""
+    flat, b, w, x0 = pgdb_prepare(counts, input_blochs_t, povm_matrix, n_measurements)
+    d1 = b.shape[-1]
+    big = d1 >= 1024  # 5+ qubits
+    if cp is None:
+        cp = "ns" if big else "eigh"
+    if chunk is None:
+        if cp == "ns":
+            chunk = 500 if d1 <= 1024 else 20
+        else:
+            chunk = 200 if big else 500
+    if gamma is None:
+        gamma = 0.5 / d1
+    if tol is None:
+        tol = 1e-13 if flat.dtype == torch.float64 else 1e-9
+    z = as_real(init_bloch, like=x0).expand(x0.shape) if init_bloch is not None else x0
+    last_nll = math.inf
+    x_g = z
+    for _ in range(0, max_iter, chunk):
+        z, x_g, nll = dys_factored_chunk(z, flat, b, w, gamma, chunk, cp)
+        nll_now = float(nll.max())
+        if last_nll - nll_now <= tol * chunk:
+            break
+        last_nll = nll_now
+    if big:
+        return cptp_project_bloch_host(x_g, max_iter=200, cp="ns")
+    return cptp_project_bloch(x_g, 200)

@@ -1,4 +1,6 @@
-"""The RrhoR kernels on the card, against their plain versions.
+"""The RrhoR kernels on the card against their plain versions, and the
+paths without a kernel (Cholesky MLE, kron chains, process tomography) on
+the card against the CPU.
 
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
@@ -242,3 +244,92 @@ def test_cholesky_mle_on_the_card_matches_the_cpu_likelihood(cuda):
     nll_card = state_core.nll_bloch(on_card.cpu(), a, freq, 2)
     nll_cpu = state_core.nll_bloch(on_cpu, a, freq, 2)
     assert float((nll_card - nll_cpu).abs().max()) <= 1e-9
+
+
+def _process_design(n, batch, dtype, seed, shots=2000):
+    """A process experiment's counts and design as CPU tensors: `batch`
+    experiments on depolarizing(0.1, n), proj4 inputs, proj-set."""
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=seed, device="cpu", dtype=dtype)
+    tmg.experiment(shots)
+    _, b, povm, n_meas = tmg._design()
+    out = torch.stack([
+        torch.as_tensor(tmg.channel.transform(s).bloch, dtype=dtype)
+        for s in tmg.input_basis.elements])
+    gen = torch.Generator().manual_seed(seed)
+    counts = state_core.simulate_experiment(gen, povm, out.expand(batch, -1, -1), n_meas)
+    return counts, b, povm, n_meas
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_process_lifp_and_projections_on_the_card_match_the_cpu(cuda, dtype):
+    from quantpy_tpu_torch.tomography import process_core
+
+    cpu = _process_design(2, 6, dtype, seed=51)
+    card = tuple(x.to(cuda) for x in cpu)
+    raw_cpu = process_core.estimate_lifp_factored(*cpu, cptp=False)
+    raw = process_core.estimate_lifp_factored(*card, cptp=False)
+    assert raw.device.type == "cuda" and raw.dtype == dtype
+    assert float((raw.cpu() - raw_cpu).abs().max()) <= TOL[dtype]
+    for cp in ("eigh", "ns"):
+        # a fixed count of iterations, so both devices run the same ones
+        on_cpu = process_core.cptp_project_bloch_host(raw_cpu, max_iter=50, chunk=50, cp=cp)
+        on_card = process_core.cptp_project_bloch_host(raw_cpu.to(cuda), max_iter=50, chunk=50, cp=cp)
+        assert on_card.device.type == "cuda" and on_card.dtype == dtype
+        assert float((on_card.cpu() - on_cpu).abs().max()) <= TOL[dtype]
+    dec = qtt.ProcessTomograph(
+        qtt.depolarizing(0.1, 2), device="cpu", dtype=dtype)._decomposed_single_entries
+    outs = state_core.estimate_lin(cpu[0], cpu[2], cpu[3])
+    choi_cpu = process_core.states_to_choi_bloch(outs, dec)
+    choi = process_core.states_to_choi_bloch(outs.to(cuda), dec)
+    assert float((choi.cpu() - choi_cpu).abs().max()) <= TOL[dtype]
+
+
+def test_process_lifp_float32_close_to_float64_at_four_qubits(cuda):
+    """The 256 x 256 Gram solves of the 4-qubit input basis in float32: the
+    raw and the projected lifp estimates within 1e-3 in hs of float64's."""
+    from quantpy_tpu_torch.tomography import bootstrap_core, process_core
+
+    counts, b, povm, n_meas = _process_design(4, 2, torch.float64, seed=52)
+    est = {}
+    for dtype in (torch.float32, torch.float64):
+        args = tuple(x.to(cuda, dtype) for x in (counts, b, povm, n_meas))
+        raw = process_core.estimate_lifp_factored(*args, cptp=False)
+        proj = process_core.cptp_project_bloch_host(raw, max_iter=50, chunk=50, cp="ns")
+        assert raw.dtype == proj.dtype == dtype
+        est[dtype] = (raw.double(), proj.double())
+    for a, b64 in zip(est[torch.float32], est[torch.float64]):
+        hs = bootstrap_core._distance_batch("hs", a, b64, 8)
+        assert float(hs.max()) <= 1e-3
+
+
+@pytest.mark.parametrize("states_est_method, expected", [("mle-rhor", 1), ("lin", 0)])
+def test_process_states_method_launch_counts(cuda, states_est_method, expected):
+    """'states' estimates the float32 batch (S, D) of output states in one
+    call: one launch of the lane kernel for 'mle-rhor', none for 'lin'."""
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=53, dtype=torch.float32)
+    tmg.experiment(10_000)
+    before = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    est = tmg.point_estimate("states", states_est_method=states_est_method)
+    torch.cuda.synchronize()
+    assert kernels.rhor_mle.launches == before[0] + expected
+    assert kernels.rhor_mle_flat.launches == before[1]
+    assert est.is_cptp(atol=1e-3, verbose=False)
+
+
+def test_process_tomograph_defaults_to_the_card(cuda):
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=54)
+    assert tmg.device.type == "cuda" and tmg.generator.device.type == "cuda"
+    tmg.experiment(10_000)
+    assert all(t.device.type == "cuda" for t in tmg.tomographs)
+    assert all(x.device.type == "cuda" for x in tmg._design())
+    before = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    est = tmg.point_estimate("lifp")
+    interval = qtt.BootstrapProcessInterval(tmg, n_points=64)
+    counts = interval.simulate(torch.Generator(device="cuda").manual_seed(1))
+    assert counts.device.type == "cuda" and counts.shape == (64, 16, 9, 4)
+    assert interval.estimate(counts).device.type == "cuda"
+    interval()
+    assert interval.distances.shape == (64,)
+    assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == before
+    assert est.is_cptp(atol=1e-3, verbose=False)
+    assert float(qtt.hs_dst(est.choi, tmg.channel.choi)) < 0.2

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6 and 7 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6, 7 and 8 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 67] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 678] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
-host clocks, the kron scaling rows shrink to the qubit counts given, and
-the large kron bootstrap to 4 resamples at 6 qubits. What it prints are
+host clocks, the kron scaling rows shrink to the qubit counts given, the
+large kron bootstrap to 4 resamples at 6 qubits, and phase 8's process
+bootstraps to 2 qubits x 32 resamples and 1 qubit x 8 resamples (with no
+launch expected of method='states': the CPU has no kernel). What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -41,7 +43,7 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="67", help="which of phases 6 and 7 to run")
+    parser.add_argument("--phases", default="678", help="which of phases 6, 7 and 8 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -54,6 +56,10 @@ def main() -> int:
     chip_smoke.DEVICE = "cpu"
     chip_smoke.KRON_SCALING = tuple(int(n) for n in args.scaling.split(","))
     chip_smoke.KRON_BOOT = (6, 4)
+    chip_smoke.PROC_FLAGSHIP = (2, 2_000, 32)
+    chip_smoke.PROC_MEDIAN_BAND = (0.05, 0.5)
+    chip_smoke.PROC_EIGH_ROW = (1, 2_000, 8)
+    chip_smoke.STATES_RHOR_LAUNCHES = 0
     torch.cuda.Event = _HostEvent
     torch.cuda.synchronize = lambda *_: None
     torch.cuda.reset_peak_memory_stats = lambda *_: None
@@ -79,6 +85,10 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase7_kron(card)
         print(f"phase 7: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "8" in args.phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase8_process(card)
+        print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

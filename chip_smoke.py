@@ -58,6 +58,22 @@ non-zero exit code, and nothing falls back to the CPU:
    Choi matrix checked for TP and CP, its rate, stage times, peak memory,
    idle share and the projection's TFLOP/s; and a 3-qubit 64-resample
    bootstrap on the 'eigh' engine (time and peak memory only).
+9. The analytic confidence intervals on the card (no kernel of their own):
+   (a) every interval of the slice (moment, Sugiyama, moment-fidelity,
+   polytope on all three LP paths, Holder), count_delta and the coverage
+   hits on 2-qubit tomographs in float64, the card against the CPU on the
+   same counts (equal lp_iterations); (b) full-width rows in float32,
+   each audited for devices, float64 operations and kernel launches (none),
+   with times, radii or bounds, lp_iterations, peak memory and the
+   polytopes' idle share and GEMM share; each polytope's two LP solves
+   with their last residual readings, the margins that report the 1.0
+   marker of a failed solve, and its other margins held to bracket the
+   true point wherever it is feasible: GHZ-4 dense (1,000-margin
+   polytope), the f32 polytope against a float64 rerun, GHZ-6 in kron mode
+   (200 margins), depolarizing(0.1, 4) with 256 inputs (exact per-state
+   moments, Holder's 256 children, the two-factor polytope at 50 margins)
+   and its Hutchinson moments; (c) the coverage harness at 10^4 trials x 18
+   levels (GHZ-4; 3-qubit QPT with sic inputs).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -129,6 +145,40 @@ PROC_NLL_REL = 1e-5
 PROC_TP_TOL = 5e-2
 PROC_MIN_EIG = -1e-4
 STATES_RHOR_LAUNCHES = 1  # rhor_mle launches of method='states' with 'mle-rhor' in float32
+# Phase 9. The dense state row is phase 3's design (qubits, shots) with
+# PolytopeStateInterval's default n_points; the kron row is phase 7's GHZ-6
+# with the polytope at docs/benchmarks.md's measured n_points = 200; the
+# channel row is phase 8's design with the two-factor polytope at 50 margins.
+ANALYTIC_STATE = (4, 10_000, 1000)  # qubits, shots, polytope n_points
+ANALYTIC_KRON = (6, 10_000, 200)
+ANALYTIC_CHANNEL = (4, 2_000, 50)
+ANALYTIC_LEVELS = (0.5, 0.9, 0.99)  # where each row's radii and bounds are printed
+# the float32 polytope against a float64 rerun: tests/test_intervals.py's
+# test_polytope_interval_f32_vs_x64 (n_points and tolerance)
+ANALYTIC_F64_POINTS = 40
+F32_F64_ATOL = 5e-3
+# The rows' DeviceAudit passes cap every polytope LP at one 500-iteration
+# chunk, and the idle shares of the three polytopes are read on runs capped
+# at IDLE_LP_ITERS: every PDHG iteration runs the same operations, and the
+# profiler stays at ~20k device events per run.
+AUDIT_LP_ITERS = 500
+IDLE_LP_ITERS = 1000
+# A polytope's two LP solves (min, max) at full width are read as the
+# stopping rule last read them. A margin whose solve leaves a violation over
+# LP_FLAG_VIOL reports the bound 1.0 (interval._PolytopeBase._solve_with).
+# Each row's target is its true state or channel, so the true point of the
+# LP's variables is the min solve's objective vector c: wherever the true
+# point lies in a margin's polytope, an exact min and max bracket <c, c>;
+# TRUE_POINT_SLACK is that check's slack relative to 1 + <c, c>.
+LP_FLAG_VIOL = 1e-3
+TRUE_POINT_SLACK = 1e-3
+# the Hutchinson channel moments (128 probes) against the exact ones: the
+# mean is exact, the variance within tests/test_intervals.py's 5%
+STOCH_MEAN_REL = 1e-6
+STOCH_VAR_REL = 0.05
+# the paper's fig. 1 coverage harness: qubits, shots per POVM, trials
+COVERAGE_QST = (4, 10_000, 10_000)
+COVERAGE_QPT = (3, 10_000, 10_000)
 
 
 def log(msg: str) -> None:
@@ -162,13 +212,23 @@ def device_busy_ms(fn) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
 
+def idle_share(busy_ms, wall_ms):
+    """1 - busy / wall as printed: unclamped, so that a busy time above the
+    wall time (work counted twice) shows as a negative share, and named."""
+    if busy_ms <= 0:
+        return "not measured (the profiler recorded no device time)"
+    share = f"{1.0 - busy_ms / wall_ms:.3f}"
+    if busy_ms > wall_ms:
+        share += " (the profiler's busy time exceeds the call's wall time)"
+    return share
+
+
 def log_idle_share(what, fn, wall_ms):
     """Print the device's busy time in one more call of fn() beside the
     call's unprofiled wall time `wall_ms`, and the idle share."""
     busy = device_busy_ms(fn)
-    share = "not measured (the profiler recorded no device time)" if busy <= 0 else (
-        f"{max(0.0, 1.0 - busy / wall_ms):.3f}")
-    log(f"    {what}: device busy {busy:.3f} ms of a {wall_ms:.3f} ms call; idle share {share}")
+    log(f"    {what}: device busy {busy:.3f} ms of a {wall_ms:.3f} ms call; "
+        f"idle share {idle_share(busy, wall_ms)}")
 
 
 def phase0_device():
@@ -1165,6 +1225,484 @@ def phase8_process(card):
     return launches
 
 
+def _interval_twins(tmg):
+    """A float64 CPU tomograph holding `tmg`'s design and counts (a process
+    twin keeps the single-qubit design factors)."""
+    from quantpy_tpu_torch import interop
+
+    arrays = interop.to_numpy(tmg)
+    if hasattr(tmg, "channel"):
+        twin = interop.process_tomograph_from_arrays(**arrays, device="cpu", dtype=torch.float64)
+        twin._states1_t, twin._povm1 = tmg._states1_t, tmg._povm1
+        return twin
+    return interop.tomograph_from_arrays(**arrays, device="cpu", dtype=torch.float64)
+
+
+def _agree(what, card_vals, cpu_vals, rtol=0.0, atol=0.0):
+    """Raise unless the card's values equal the CPU's to rtol / atol."""
+    import numpy as np
+
+    a = np.asarray(card_vals, dtype=np.float64)
+    b = np.asarray(cpu_vals, dtype=np.float64)
+    err = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b) + 1e-300)))
+    log(f"    {what}: card vs CPU max |diff| {float(np.max(np.abs(a - b))):.3e} "
+        f"({'rtol' if rtol else 'atol'} {rtol or atol:.0e})")
+    if not err <= 1.0:
+        raise AssertionError(f"{what}: the card and the CPU disagree ({a} vs {b})")
+
+
+def _analytic_small_checks():
+    """Phase 9, part (a): every interval of the slice on 2-qubit tomographs
+    in float64, the card against the CPU on the same counts."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import interval as interval_mod
+    from quantpy_tpu_torch.tomography.polytopes import utils, verification
+
+    f64 = torch.float64
+    levels = np.linspace(0.1, 0.95, 12)
+    state = qtt.StateTomograph(qtt.GHZ(2), key=91, dtype=f64)  # the default device
+    state.experiment(3000, "proj-set")
+    dephase = qtt.ProcessTomograph(qtt.dephasing(0.3), key=92, dtype=f64)
+    dephase.experiment(3000, "proj-set")
+    depol = qtt.ProcessTomograph(qtt.depolarizing(0.3, 2), key=93, dtype=f64)
+    depol.experiment(3000, "proj-set")
+    if not all(t.device.type == DEVICE for t in (state, dephase, depol)):
+        raise AssertionError("the phase-9 tomographs are not on the card")
+
+    def radii(cls, tmg, **kw):
+        return cls(tmg, **kw)(levels)[0]
+
+    def bands(cls, tmg, **kw):
+        iv = cls(tmg, **kw)
+        (lo, hi), _ = iv(levels)
+        return np.concatenate([lo, hi]), getattr(iv, "lp_iterations", None)
+
+    for name, tmg in (("GHZ(2)", state), ("dephasing(0.3)", dephase),
+                      ("depolarizing(0.3, 2)", depol)):
+        twin = _interval_twins(tmg)
+        for distr in ("gamma", "norm", "exp"):
+            _agree(f"MomentInterval('{distr}') of {name}",
+                   radii(qtt.MomentInterval, tmg, distr_type=distr),
+                   radii(qtt.MomentInterval, twin, distr_type=distr), rtol=1e-10)
+        if tmg is state:
+            _agree("SugiyamaInterval of GHZ(2)", radii(qtt.SugiyamaInterval, tmg),
+                   radii(qtt.SugiyamaInterval, twin), rtol=1e-10)
+            _agree("MomentFidelityStateInterval of GHZ(2)",
+                   bands(qtt.MomentFidelityStateInterval, tmg, target_state=qtt.GHZ(2))[0],
+                   bands(qtt.MomentFidelityStateInterval, twin, target_state=qtt.GHZ(2))[0],
+                   rtol=1e-10)
+            polys = [("PolytopeStateInterval of GHZ(2)", qtt.PolytopeStateInterval, None)]
+        else:
+            _agree(f"MomentFidelityProcessInterval of {name}",
+                   bands(qtt.MomentFidelityProcessInterval, tmg)[0],
+                   bands(qtt.MomentFidelityProcessInterval, twin)[0], rtol=1e-10)
+            for kind in ("moment", "sugiyama"):
+                _agree(f"HolderInterval('{kind}') of {name}",
+                       radii(qtt.HolderInterval, tmg, kind=kind, n_points=64),
+                       radii(qtt.HolderInterval, twin, kind=kind, n_points=64), rtol=1e-10)
+            # the process polytope on the dense LP, then forced onto the
+            # two-factor operator
+            polys = [(f"PolytopeProcessInterval (dense) of {name}",
+                      qtt.PolytopeProcessInterval, None),
+                     (f"PolytopeProcessInterval (two-factor) of {name}",
+                      qtt.PolytopeProcessInterval, 1)] if tmg is dephase else []
+        for what, cls, dense_max in polys:
+            saved = interval_mod._PolytopeBase.DENSE_LP_MAX_ELEMENTS
+            interval_mod._PolytopeBase.DENSE_LP_MAX_ELEMENTS = dense_max or saved
+            try:
+                (card_b, card_it), (cpu_b, cpu_it) = (
+                    bands(cls, t, n_points=20) for t in (tmg, twin))
+            finally:
+                interval_mod._PolytopeBase.DENSE_LP_MAX_ELEMENTS = saved
+            _agree(f"{what}, lp_iterations {card_it}", card_b, cpu_b, atol=1e-8)
+            if card_it != cpu_it:
+                raise AssertionError(f"{what}: lp_iterations {card_it} on the card, {cpu_it} "
+                                     "on the CPU")
+
+    freq = np.clip(state.results / state.n_measurements[:, None], 1e-15, 1 - 1e-15)
+    targets = np.array([0.0, 0.3, 0.9, 1 - 1e-7])
+    _agree("count_delta of GHZ(2)",
+           utils.count_delta(targets, state._tensor(freq), state.n_measurements).cpu(),
+           utils.count_delta(targets, torch.as_tensor(freq), state.n_measurements), rtol=1e-12)
+    problem = verification.qst_problem(qtt.GHZ(2), 500)
+    batch = verification.simulate_frequencies(
+        torch.Generator().manual_seed(94), *problem[:2], torch.as_tensor(problem[2]), 300)
+    cov_levels = np.linspace(0.05, 0.99, 18)
+    hits = [verification.coverage_of(f, problem[1], *problem[3:5], cov_levels, problem[5])
+            for f in (batch.to(DEVICE), batch)]
+    log(f"    coverage_of GHZ(2), 300 trials x 18 levels: hits {hits[0].tolist()}")
+    if not np.array_equal(*hits):
+        raise AssertionError(f"coverage hits differ: card {hits[0]}, CPU {hits[1]}")
+
+
+class LPRecorder:
+    """Inside it, every PDHG solve of convex/lp.py is recorded: its forward
+    map, right-hand sides, objective and tolerance, and its final iterate's
+    objective values, violations, iterations and residual readings
+    [primal, dual, gap, scale] (the batch maxima the stopping rule reads)."""
+
+    def __enter__(self):
+        from quantpy_tpu_torch.convex import lp
+
+        self.solves = []
+        self._lp, self._saved = lp, (lp._pdhg, lp._residuals)
+        pdhg, residuals = self._saved
+        last = {}
+
+        def recording_residuals(*args):
+            out = residuals(*args)
+            last["stats"] = out[2]
+            return out
+
+        def recording_pdhg(fwd, adj, c, b, tau, sigma, n_iter, tol):
+            x, obj, viol, iters = pdhg(fwd, adj, c, b, tau, sigma, n_iter, tol)
+            self.solves.append({
+                "fwd": fwd, "b": b, "c": c, "obj": obj, "viol": viol, "iters": iters,
+                "stats": last["stats"].tolist(),
+                "tol": lp._default_tol(b.dtype) if tol is None else tol,
+            })
+            return x, obj, viol, iters
+
+        lp._pdhg, lp._residuals = recording_pdhg, recording_residuals
+        return self
+
+    def __exit__(self, *exc):
+        self._lp._pdhg, self._lp._residuals = self._saved
+        return False
+
+
+def _row(what, build, card, lp_cap=None):
+    """One full-width row of phase 9, part (b): `build()` makes and sets
+    up the row's intervals and returns {name: (interval, seconds)}. A first
+    call runs under DeviceAudit, with every polytope's LP capped at
+    `lp_cap` iterations; the second is timed and read. Returns the second
+    call's intervals and its recorded LP solves (LPRecorder)."""
+    from quantpy_tpu_torch.tomography import interval as interval_mod
+
+    _reset_launches()
+    audit = DeviceAudit()
+    saved = interval_mod._PolytopeBase.LP_ITERS
+    interval_mod._PolytopeBase.LP_ITERS = lp_cap or saved
+    try:
+        with audit:
+            build()
+            torch.cuda.synchronize()
+    finally:
+        interval_mod._PolytopeBase.LP_ITERS = saved
+    _check_no_kernel_and_on_card(audit, what)
+    log(f"    float64 / complex128 operations in it: {sorted(audit.wide) or 'none'}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LPRecorder() as recorder:
+        built = build()
+    log(f"    {what}: peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {card}")
+    return built, recorder.solves
+
+
+def _timed_setup(iv):
+    """Set `iv` up; its wall time in seconds (ends in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iv.setup()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _read_lp(name, solves):
+    """Print a polytope's min and max LP solves as the stopping rule last
+    read them, count the margins that report the 1.0 marker, and check the
+    other margins against the true point (see LP_FLAG_VIOL)."""
+    low, high = solves
+    for label, sv in (("min", low), ("max", high)):
+        res_p, res_d, gap, scale = sv["stats"]
+        rel = (res_p / (1.0 + float(sv["b"].abs().amax())),
+               res_d / (1.0 + float(sv["c"].abs().amax())), gap / scale)
+        verdict = "converged" if max(rel) <= sv["tol"] else "NOT converged"
+        log(f"        {label} LP: {sv['iters']} iterations, {verdict}: residuals primal "
+            f"{rel[0]:.3e}, dual {rel[1]:.3e}, gap {rel[2]:.3e} (each relative, tol "
+            f"{sv['tol']:.0e}); max violation {float(sv['viol'].amax()):.3e}")
+    flagged = (low["viol"] > LP_FLAG_VIOL) | (high["viol"] > LP_FLAG_VIOL)
+    x0 = low["c"]
+    value = float(x0 @ x0)
+    inside = (low["fwd"](x0.expand(low["b"].shape[0], -1)) - low["b"]).amax(-1) <= 0
+    checked = inside & ~flagged
+    slack = TRUE_POINT_SLACK * (1.0 + abs(value))
+    brackets = (low["obj"] <= value + slack) & (-high["obj"] >= value - slack)
+    n_checked, n_wrong = int(checked.sum()), int((checked & ~brackets).sum())
+    log(f"        {int(flagged.sum())} of {flagged.numel()} margins report the 1.0 marker "
+        f"(violation over {LP_FLAG_VIOL:.0e}); the true point lies in {int(inside.sum())} "
+        f"margins' polytopes, and {n_checked - n_wrong} of the {n_checked} unflagged ones "
+        f"bracket its objective {value:.6f}")
+    if n_checked == 0 or n_wrong:
+        raise AssertionError(f"{name}: {n_wrong} of {n_checked} checked margins do not bracket "
+                             "the true point's objective")
+
+
+def _read(name, iv, seconds, banded=False, solves=None):
+    """Print an interval's values at ANALYTIC_LEVELS and check them: finite,
+    non-negative and non-decreasing radii; bands with min <= max; LP
+    iterations within the cap, and a polytope's recorded `solves` through
+    _read_lp."""
+    import numpy as np
+
+    out, _ = iv(np.asarray(ANALYTIC_LEVELS))
+    extra = ""
+    if banded:
+        lo, hi = (np.asarray(x, dtype=np.float64) for x in out)
+        text = f"bounds {[(round(float(a), 6), round(float(b), 6)) for a, b in zip(lo, hi)]}"
+        slack = 1e-6 if hasattr(iv, "lp_iterations") else 1e-9
+        ok = np.all(np.isfinite(lo)) and np.all(np.isfinite(hi)) and np.all(lo <= hi + slack)
+    else:
+        dist = np.asarray(out, dtype=np.float64)
+        text = f"radii {[round(float(d), 6) for d in dist]}"
+        ok = np.all(np.isfinite(dist)) and np.all(dist >= 0) and np.all(np.diff(dist) >= -1e-9)
+    if hasattr(iv, "lp_iterations"):
+        extra = f", lp_iterations {iv.lp_iterations}"
+        ok = ok and max(iv.lp_iterations) <= iv.LP_ITERS
+    log(f"      {name}: {seconds * 1e3:.3f} ms, {text} at cl {ANALYTIC_LEVELS}{extra}")
+    if not ok:
+        raise AssertionError(f"{name}: values fail the interval checks")
+    if hasattr(iv, "lp_iterations"):
+        _read_lp(name, solves)
+
+
+def _lp_rate(iv, seconds, macs_per_iteration):
+    """Print the PDHG products' rate: 2 MACs-to-FLOPs per counted MAC over
+    every iteration of both directions, against the whole setup's time."""
+    tflop = 2.0 * macs_per_iteration * sum(iv.lp_iterations) / 1e12
+    log(f"      PDHG products {tflop:.3f} TFLOP over {sum(iv.lp_iterations)} iterations in "
+        f"{seconds * 1e3:.3f} ms = {tflop / seconds:.3f} TFLOP/s (a lower bound: the setup's "
+        "time includes the margins and the host work)")
+
+
+def _lp_device_split(what, make):
+    """Print the idle share of a polytope interval's setup with its LP
+    capped at IDLE_LP_ITERS iterations (every PDHG iteration runs the same
+    operations), and the share of the card's busy time spent in GEMM
+    kernels (kernel names holding "gemm"), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def capped():
+        iv = make()
+        iv.LP_ITERS = IDLE_LP_ITERS
+        iv.setup()
+
+    wall_ms = cuda_ms(capped, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        capped()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    gemm = sum(e.self_device_time_total for e in events if "gemm" in e.key.lower()) / 1e3
+    log(f"    {what}, LP capped at {IDLE_LP_ITERS} iterations: device busy {busy:.3f} ms of a "
+        f"{wall_ms:.3f} ms call, idle share {idle_share(busy, wall_ms)}; GEMM kernels "
+        f"{gemm:.3f} ms, other kernels {busy - gemm:.3f} ms")
+
+
+def _analytic_state_rows(card):
+    """Phase 9, part (b): the dense GHZ-4 row, the f32-vs-f64 polytope
+    check, and the kron GHZ-6 row."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+
+    n, shots, n_points = ANALYTIC_STATE
+    tmg = qtt.StateTomograph(qtt.GHZ(n), key=95)  # the default device, float32
+    tmg.experiment(shots, "proj-set")
+    if tmg.povm_matrix is None or tmg.device.type != DEVICE or tmg.dtype != torch.float32:
+        raise AssertionError("the dense state row is not a float32 dense design on the card")
+
+    def build_dense():
+        out = {}
+        for distr in ("gamma", "norm", "exp"):
+            iv = qtt.MomentInterval(tmg, distr_type=distr)
+            out[f"MomentInterval('{distr}')"] = (iv, _timed_setup(iv))
+        iv = qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state)
+        out["MomentFidelityStateInterval"] = (iv, _timed_setup(iv))
+        iv = qtt.SugiyamaInterval(tmg)
+        out["SugiyamaInterval"] = (iv, _timed_setup(iv))
+        iv = qtt.PolytopeStateInterval(tmg, n_points=n_points)
+        out["PolytopeStateInterval"] = (iv, _timed_setup(iv))
+        return out
+
+    m, p, dim = tmg.povm_matrix.shape
+    log(f"    state, dense: GHZ({n}), proj-set ({m} x {p}, K = {m * p}), {shots} shots, "
+        f"float32; polytope {n_points} margins x 2 directions of {m * p} constraints x "
+        f"{dim - 1} variables")
+    rows, solves = _row(f"the dense GHZ-{n} row", build_dense, card, lp_cap=AUDIT_LP_ITERS)
+    for name, (iv, seconds) in rows.items():
+        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
+              solves=solves)
+    poly, poly_s = rows["PolytopeStateInterval"]
+    _lp_rate(poly, poly_s, 2 * n_points * m * p * (dim - 1))
+
+    _lp_device_split(f"the GHZ-{n} polytope interval",
+                     lambda: qtt.PolytopeStateInterval(tmg, n_points=n_points))
+
+    # float32 against float64 on the same counts at the JAX package's
+    # test size (test_polytope_interval_f32_vs_x64)
+    from quantpy_tpu_torch import interop
+
+    twin64 = interop.tomograph_from_arrays(**interop.to_numpy(tmg), dtype=torch.float64)
+    cl = np.linspace(0.3, 0.9, 6)
+    got = {}
+    for label, t in (("float32", tmg), ("float64", twin64)):
+        iv = qtt.PolytopeStateInterval(t, n_points=ANALYTIC_F64_POINTS)
+        seconds = _timed_setup(iv)
+        (lo, hi), _ = iv(cl)
+        got[label] = np.concatenate([lo, hi])
+        log(f"      PolytopeStateInterval(n_points={ANALYTIC_F64_POINTS}) in {label}: "
+            f"{seconds * 1e3:.3f} ms, lp_iterations {iv.lp_iterations}")
+        if max(iv.lp_iterations) > iv.LP_ITERS:
+            raise AssertionError(f"{label} polytope LP ran past its cap")
+    gap = float(np.max(np.abs(got["float32"] - got["float64"])))
+    log(f"      float32 vs float64 bounds at 6 levels in [0.3, 0.9]: max |diff| {gap:.3e} "
+        f"(limit {F32_F64_ATOL:.0e})")
+    if not gap <= F32_F64_ATOL:
+        raise AssertionError(f"float32 polytope bounds lie {gap} from float64's")
+
+    n, shots, n_points = ANALYTIC_KRON
+    tmg = qtt.StateTomograph(qtt.GHZ(n), key=96)
+    tmg.experiment(shots, "proj-set")
+    if not tmg.kron_mode:
+        raise AssertionError(f"StateTomograph(GHZ({n})) is not in kron mode")
+
+    def build_kron():
+        out = {}
+        iv = qtt.MomentInterval(tmg)
+        out["MomentInterval (kron_l2_moments)"] = (iv, _timed_setup(iv))
+        iv = qtt.SugiyamaInterval(tmg)
+        out["SugiyamaInterval (kron_sugiyama_c_alpha)"] = (iv, _timed_setup(iv))
+        iv = qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state)
+        out["MomentFidelityStateInterval"] = (iv, _timed_setup(iv))
+        iv = qtt.PolytopeStateInterval(tmg, n_points=n_points)
+        out["PolytopeStateInterval (solve_lp_batch_kron)"] = (iv, _timed_setup(iv))
+        return out
+
+    shape = tmg.results.shape
+    log(f"    state, kron: GHZ({n}) in kron mode, counts {shape}, {shots} shots, float32; "
+        f"polytope {n_points} margins of {shape[0] * shape[1]} constraints x {4**n - 1} "
+        "variables")
+    rows, solves = _row(f"the kron GHZ-{n} row", build_kron, card, lp_cap=AUDIT_LP_ITERS)
+    for name, (iv, seconds) in rows.items():
+        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
+              solves=solves)
+    _lp_device_split(f"the kron GHZ-{n} polytope interval",
+                     lambda: qtt.PolytopeStateInterval(tmg, n_points=n_points))
+
+
+def _analytic_channel_rows(card):
+    """Phase 9, part (b): the 4-qubit channel row and its stochastic twin."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import interval as interval_mod
+
+    n, shots, n_points = ANALYTIC_CHANNEL
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=97)  # default device, float32
+    tmg.experiment(shots)
+    t0 = tmg.tomographs[0]
+    n_in, (m, p, _) = len(tmg.tomographs), t0.povm_matrix.shape
+    dim = 4**n
+
+    def build():
+        out = {}
+        iv = qtt.MomentInterval(tmg)
+        out["MomentInterval (per-state Grams)"] = (iv, _timed_setup(iv))
+        iv = qtt.MomentFidelityProcessInterval(tmg)
+        out["MomentFidelityProcessInterval"] = (iv, _timed_setup(iv))
+        for kind in ("moment", "sugiyama"):
+            iv = qtt.HolderInterval(tmg, kind=kind)
+            out[f"HolderInterval('{kind}'), {n_in} children"] = (iv, _timed_setup(iv))
+        iv = qtt.PolytopeProcessInterval(tmg, n_points=n_points)
+        out["PolytopeProcessInterval (solve_lp_batch_factors)"] = (iv, _timed_setup(iv))
+        return out
+
+    log(f"    channel: depolarizing(0.1, {n}), {n_in} proj4 inputs, proj-set ({m} x {p}), "
+        f"{shots} shots, float32; polytope {n_points} margins of ({n_in} x {m * p}) "
+        f"constraints x {dim * (dim - 1)} variables, two-factor")
+    rows, solves = _row(f"the {n}-qubit channel row", build, card, lp_cap=AUDIT_LP_ITERS)
+    for name, (iv, seconds) in rows.items():
+        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
+              solves=solves)
+    poly, poly_s = rows["PolytopeProcessInterval (solve_lp_batch_factors)"]
+    # per iteration: forward left-first and adjoint right-first, each
+    # P S A B + P S B K MACs
+    _lp_rate(poly, poly_s, 2 * n_points * n_in * (dim - 1) * (dim + m * p))
+    _lp_device_split(f"the {n}-qubit process polytope interval",
+                     lambda: qtt.PolytopeProcessInterval(tmg, n_points=n_points))
+    exact = rows["MomentInterval (per-state Grams)"][0]
+
+    def build_stochastic():
+        iv = qtt.MomentInterval(tmg)
+        return {"MomentInterval (channel_l2_moments_kron, 128 probes)": (iv, _timed_setup(iv))}
+
+    saved = interval_mod._CHANNEL_EXACT_GRAM_MAX
+    interval_mod._CHANNEL_EXACT_GRAM_MAX = 1
+    try:
+        stochastic, _ = _row(f"the {n}-qubit stochastic channel row", build_stochastic, card)
+    finally:
+        interval_mod._CHANNEL_EXACT_GRAM_MAX = saved
+    (name, (iv, seconds)), = stochastic.items()
+    _read(name, iv, seconds)
+    mean_rel = abs(iv.mean - exact.mean) / abs(exact.mean)
+    var_rel = abs(iv.variance - exact.variance) / abs(exact.variance)
+    log(f"      against the exact row: mean {mean_rel:.3e} (limit {STOCH_MEAN_REL:.0e}), "
+        f"variance {var_rel:.3e} (limit {STOCH_VAR_REL:.0%}) relative")
+    if not (mean_rel <= STOCH_MEAN_REL and var_rel <= STOCH_VAR_REL):
+        raise AssertionError("the stochastic channel moments are off the exact ones")
+
+
+def _coverage_rows(card):
+    """Phase 9, part (c): the coverage harness at the paper's fig. 1 sizes."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography.polytopes.verification import test_qpt, test_qst
+
+    levels = np.linspace(0.05, 0.99, 18)
+    n, shots, trials = COVERAGE_QST
+    n_ch, shots_ch, trials_ch = COVERAGE_QPT
+    runs = (
+        (f"test_qst(GHZ({n}))", trials,
+         lambda t: test_qst(qtt.GHZ(n), levels, n_measurements=shots, n_trials=t, key=98)),
+        (f"test_qpt(depolarizing(0.1, {n_ch}), 'sic')", trials_ch,
+         lambda t: test_qpt(qtt.depolarizing(0.1, n_ch), levels, n_measurements=shots_ch,
+                            n_trials=t, input_states="sic", key=99)),
+    )
+    for what, n_trials, run in runs:
+        # audited at a tenth of the trials: each chunk of trials runs the
+        # same operations
+        _reset_launches()
+        audit = DeviceAudit()
+        with audit:
+            run(n_trials // 10)
+            torch.cuda.synchronize()
+        _check_no_kernel_and_on_card(audit, what)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cov = run(n_trials)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"    {what}, 18 levels in [0.05, 0.99], {n_trials} trials: {seconds:.3f} s = "
+            f"{n_trials / seconds:.1f} trials/s, peak memory {peak:.1f} MiB on {card}")
+        log(f"      coverage {[round(float(c), 4) for c in cov]}")
+        if not (np.all(cov >= levels - 0.05) and np.all(np.diff(cov) >= -0.05)):
+            raise AssertionError(f"{what}: coverage under its levels or falling: {cov}")
+
+
+def phase9_intervals(card):
+    log("[9] the analytic confidence intervals on the card")
+    t0 = time.perf_counter()
+    _analytic_small_checks()
+    _analytic_state_rows(card)
+    _analytic_channel_rows(card)
+    _coverage_rows(card)
+    log(f"    phase 9: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -1177,6 +1715,7 @@ def main() -> int:
     phase6_cholesky_mle(card)
     phase7_kron(card)
     launches += phase8_process(card)
+    phase9_intervals(card)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

@@ -11,13 +11,18 @@ tomography (`ProcessTomograph`, `BootstrapProcessInterval`) estimates
 channels by linear inversion with the CPTP projection ('lifp'), projected
 gradient descent ('pgdb'), Davis-Yin splitting ('dys') or per-state
 reconstruction ('states'), on the host objects `Channel`, `Operator` and
-`Basis`.
+`Basis`. The analytic confidence intervals (`MomentInterval`,
+`SugiyamaInterval`, the moment-fidelity and polytope bands and
+`HolderInterval`) run on `stats`, `convex` (closed-form ball bounds and
+batched PDHG linear programs) and `tomography.kron_analytic`; the
+coverage harness of the confidence polytopes is
+`tomography.polytopes.verification`.
 
 The default device is the card, ``cuda`` (`config.get_device()`); CPU work
 is asked for with ``config.set_device("cpu")`` or ``device="cpu"``.
 """
 
-from . import basis, channel, config, operator, qobj, routines
+from . import basis, channel, config, convex, operator, qobj, routines, stats
 from .base import BaseQuantum
 from .basis import Basis
 from .channel import (
@@ -35,7 +40,17 @@ from .ops.geometry import fidelity, hs_dst, if_dst, product, trace_dst
 from .ops.paulis import generate_pauli
 from .qobj import GHZ, Qobj, fully_mixed, zero
 from .routines import join_gates, kron
-from .tomography.interval import BootstrapProcessInterval, BootstrapStateInterval
+from .tomography.interval import (
+    BootstrapProcessInterval,
+    BootstrapStateInterval,
+    HolderInterval,
+    MomentFidelityProcessInterval,
+    MomentFidelityStateInterval,
+    MomentInterval,
+    PolytopeProcessInterval,
+    PolytopeStateInterval,
+    SugiyamaInterval,
+)
 from .tomography.process import ProcessTomograph
 from .tomography.state import StateTomograph
 
@@ -64,6 +79,13 @@ __all__ = [
     "Operator",
     "ProcessTomograph",
     "BootstrapProcessInterval",
+    "MomentInterval",
+    "MomentFidelityStateInterval",
+    "MomentFidelityProcessInterval",
+    "SugiyamaInterval",
+    "PolytopeStateInterval",
+    "PolytopeProcessInterval",
+    "HolderInterval",
     "depolarizing",
     "dephasing",
     "amplitude_damping",
@@ -77,4 +99,6 @@ __all__ = [
     "operator",
     "qobj",
     "routines",
+    "convex",
+    "stats",
 ]

@@ -1,7 +1,17 @@
-"""State and process tomography: the functional cores, the bootstraps and
-the user API."""
+"""State and process tomography: the functional cores, the confidence
+intervals and the user API."""
 
-from .interval import BootstrapProcessInterval, BootstrapStateInterval
+from .interval import (
+    BootstrapProcessInterval,
+    BootstrapStateInterval,
+    HolderInterval,
+    MomentFidelityProcessInterval,
+    MomentFidelityStateInterval,
+    MomentInterval,
+    PolytopeProcessInterval,
+    PolytopeStateInterval,
+    SugiyamaInterval,
+)
 from .process import ProcessTomograph
 from .state import StateTomograph
 
@@ -10,4 +20,11 @@ __all__ = [
     "ProcessTomograph",
     "BootstrapStateInterval",
     "BootstrapProcessInterval",
+    "MomentInterval",
+    "MomentFidelityStateInterval",
+    "MomentFidelityProcessInterval",
+    "SugiyamaInterval",
+    "PolytopeStateInterval",
+    "PolytopeProcessInterval",
+    "HolderInterval",
 ]

@@ -1,6 +1,7 @@
 """The RrhoR kernels on the card against their plain versions, and the
-paths without a kernel (Cholesky MLE, kron chains, process tomography) on
-the card against the CPU.
+paths without a kernel (Cholesky MLE, kron chains, process tomography, the
+analytic intervals' moments, linear programs and coverage harness) on the
+card against the CPU.
 
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
@@ -333,3 +334,100 @@ def test_process_tomograph_defaults_to_the_card(cuda):
     assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == before
     assert est.is_cptp(atol=1e-3, verbose=False)
     assert float(qtt.hs_dst(est.choi, tmg.channel.choi)) < 0.2
+
+
+def _lp_problems(dtype):
+    """(name, solver, args) of one small LP of each solver, CPU tensors."""
+    import numpy as np
+
+    from quantpy_tpu_torch.convex import lp
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+
+    rng = np.random.default_rng(61)
+    povm = qtt.generate_measurement_matrix("proj-set", 2).reshape(-1, 16)
+    a = povm[:, 1:] * 4
+    x0 = qtt.GHZ(2).bloch[1:] * 0.9
+    b = torch.as_tensor(a @ x0 + np.linspace(0.02, 0.2, 8)[:, None], dtype=dtype)
+    left, right = rng.normal(size=(4, 3)), rng.normal(size=(6, 2))
+    af = np.einsum("sa,kb->skab", left, right).reshape(24, 6)
+    bf = torch.as_tensor(
+        (af @ rng.normal(size=6) * 0.1 + np.linspace(0.05, 0.3, 4)[:, None]).reshape(4, 4, 6),
+        dtype=dtype)
+    return [
+        ("dense", lp.solve_lp_batch, (x0, a, b)),
+        ("kron", lp.solve_lp_batch_kron, (x0, _single_qubit_preset("proj-set"), 2, b)),
+        ("factors", lp.solve_lp_batch_factors, (rng.normal(size=(3, 2)), left, right, bf)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_lps_on_the_card_match_the_cpu(cuda, which):
+    """Each PDHG solver in float64: the same iterations and solutions as
+    on the CPU."""
+    name, solver, args = _lp_problems(torch.float64)[which]
+    on_cpu = solver(*args)
+    on_card = solver(*args[:-1], args[-1].to(cuda))
+    assert on_card[0].device.type == cuda.type, name
+    assert on_card[3] == on_cpu[3], name
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-8, name
+
+
+def test_count_delta_and_coverage_on_the_card_match_the_cpu(cuda):
+    import numpy as np
+
+    from quantpy_tpu_torch.tomography.polytopes import utils, verification
+
+    problem = verification.qst_problem(qtt.GHZ(2), 500)
+    freq = verification.simulate_frequencies(
+        torch.Generator().manual_seed(62), *problem[:2],
+        torch.as_tensor(problem[2], dtype=torch.float64), 200)
+    targets = torch.tensor([0.0, 0.5, 0.9, 1 - 1e-7], dtype=torch.float64)
+    on_cpu = utils.count_delta(targets, freq[0], problem[1])
+    on_card = utils.count_delta(targets.to(cuda), freq[0].to(cuda), problem[1])
+    assert on_card.device.type == cuda.type
+    assert float((on_card.cpu() - on_cpu).abs().max()) <= 1e-12
+    levels = np.linspace(0.05, 0.99, 18)
+    hits_cpu = verification.coverage_of(freq, problem[1], *problem[3:5], levels, problem[5])
+    hits = verification.coverage_of(freq.to(cuda), problem[1], *problem[3:5], levels, problem[5])
+    np.testing.assert_array_equal(hits, hits_cpu)
+
+
+def test_analytic_moments_on_the_card_match_the_cpu(cuda):
+    """The channel's per-state Grams, the kron moments and the Hutchinson
+    folds (fed one set of probes), all float64, on both devices."""
+    import numpy as np
+
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.tomography import kron_analytic
+
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.3, 2), key=63, device="cpu",
+                               dtype=torch.float64)
+    tmg.experiment(3000)
+    freq = np.stack([t.results / t.n_measurements[:, None] for t in tmg.tomographs])
+    args = (tmg._input_blochs_t(), tmg.tomographs[0].povm_matrix, freq, 3000.0)
+    povm1 = _single_qubit_preset("proj-set")
+    probes = torch.randint(0, 2, (32, 4, 4), generator=torch.Generator().manual_seed(6))
+    probes = probes.double() * 2 - 1
+    for fn, fargs in (
+        (kron_analytic.channel_l2_moments, args),
+        (kron_analytic.kron_l2_moments, (povm1, 2, freq[3], 3000.0)),
+        (kron_analytic.channel_l2_moments_kron, (tmg._states1_t, povm1, 2, freq, 3000.0)),
+    ):
+        kw = {"probes": probes} if fn is kron_analytic.channel_l2_moments_kron else {}
+        on_cpu = fn(*fargs, device="cpu", **kw)
+        on_card = fn(*fargs, device=cuda, **{k: v.to(cuda) for k, v in kw.items()})
+        np.testing.assert_allclose(on_card, on_cpu, rtol=1e-10)
+
+
+def test_analytic_intervals_default_to_the_card(cuda):
+    """Built without device=, a tomograph's analytic intervals keep their
+    tensors on the card."""
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=64)
+    tmg.experiment(2000)
+    holder = qtt.HolderInterval(tmg, kind="moment")
+    holder.setup()
+    assert holder.intervals[0]._design_inv.device.type == "cuda"
+    poly = qtt.PolytopeProcessInterval(tmg, n_points=10)
+    (lo, hi), _ = poly([0.5, 0.9])
+    assert (lo <= hi + 1e-6).all() and max(poly.lp_iterations) <= poly.LP_ITERS

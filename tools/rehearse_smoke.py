@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6, 7 and 8 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6, 7, 8 and 9 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 678] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 6789] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
 large kron bootstrap to 4 resamples at 6 qubits, and phase 8's process
 bootstraps to 2 qubits x 32 resamples and 1 qubit x 8 resamples (with no
-launch expected of method='states': the CPU has no kernel). What it prints are
+launch expected of method='states': the CPU has no kernel), and phase 9's
+rows to 2 qubits (the kron row to GHZ(3), put in kron mode by lowering
+`StateTomograph.DENSE_POVM_MAX_ELEMENTS`), with few polytope margins and
+small coverage runs. What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -43,12 +46,13 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="678", help="which of phases 6, 7 and 8 to run")
+    parser.add_argument("--phases", default="6789", help="which of phases 6-9 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
     sys.path.insert(0, str(REPO))
     import chip_smoke
+    import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch import config
     from quantpy_tpu_torch.ops import lbfgs
 
@@ -60,6 +64,13 @@ def main() -> int:
     chip_smoke.PROC_MEDIAN_BAND = (0.05, 0.5)
     chip_smoke.PROC_EIGH_ROW = (1, 2_000, 8)
     chip_smoke.STATES_RHOR_LAUNCHES = 0
+    chip_smoke.ANALYTIC_STATE = (2, 3_000, 20)
+    chip_smoke.ANALYTIC_KRON = (3, 2_000, 10)
+    chip_smoke.ANALYTIC_CHANNEL = (2, 2_000, 10)
+    chip_smoke._lp_device_split = lambda *_: None
+    chip_smoke.COVERAGE_QST = (2, 500, 300)
+    chip_smoke.COVERAGE_QPT = (1, 500, 200)
+    qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000  # 2 qubits dense, 3 in kron mode
     torch.cuda.Event = _HostEvent
     torch.cuda.synchronize = lambda *_: None
     torch.cuda.reset_peak_memory_stats = lambda *_: None
@@ -89,6 +100,10 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase8_process(card)
         print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "9" in args.phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase9_intervals(card)
+        print(f"phase 9: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

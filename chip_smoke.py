@@ -74,6 +74,21 @@ non-zero exit code, and nothing falls back to the CPU:
    moments, Holder's 256 children, the two-factor polytope at 50 margins)
    and its Hutchinson moments; (c) the coverage harness at 10^4 trials x 18
    levels (GHZ-4; 3-qubit QPT with sic inputs).
+10. The MCMC intervals on the card (no kernel of their own): (a) at 2
+   qubits in float64 the chains' targets (state, process 'bloch', anchored
+   kraus, projected) and their autograd drifts, the kraus decodes and 50 MH
+   and 50 MALA steps from one set of draws, the card against the CPU;
+   float32 rows, each audited for devices, kernel launches (none) and
+   float64 operations (only those of the anchored NLL's reduction): (b)
+   MHMCStateInterval on phase 3's GHZ-4 experiment (8 chains, adapted);
+   (c) bayesian_mean_estimate on it; (d) the 3-qubit process posterior of
+   examples/posterior_sampling.py (anchored kraus-MALA, 4 chains), its
+   decoded samples checked TP and PSD, beside a 400-resample bootstrap; (e)
+   phase 8's 4-qubit experiment: a short anchored kraus-MALA chain and 10
+   projected-target MALA steps; (f) HolderInterval('mhmc') at 2 qubits;
+   (g) the calibration harness with interval='mhmc'. Each row prints its
+   time, steps per second, acceptance, R-hat, ESS, radii and peak memory,
+   and the idle share of a span of its chain.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -179,6 +194,42 @@ STOCH_VAR_REL = 0.05
 # the paper's fig. 1 coverage harness: qubits, shots per POVM, trials
 COVERAGE_QST = (4, 10_000, 10_000)
 COVERAGE_QPT = (3, 10_000, 10_000)
+# Phase 10. The card against the CPU in float64: max |card - cpu| <=
+# MCMC_CARD_TOL (1 + max |cpu|), over MCMC_CHAIN_STEPS steps of one set of
+# draws. The rows: the MHMC state interval on phase 3's experiment
+# (n_points, burn_steps, chains); the 3-qubit process posterior of
+# examples/posterior_sampling.py (qubits, shots, n_points, burn_steps,
+# chains, thinning) beside a bootstrap of MCMC_BOOT_POINTS resamples; the
+# 4-qubit kraus chain on phase 8's experiment (mode_seek, burn_steps,
+# n_points); the 4-qubit projected MALA steps; Holder's children (n_points,
+# burn_steps). Decoded kraus samples are TP to MCMC_TP_TOL and PSD to
+# MCMC_MIN_EIG. Idle shares are read on MCMC_IDLE_STEPS steps of a row's
+# chain.
+MCMC_CARD_TOL = 1e-10
+# The projected target's drift differentiates 100 Newton-Schulz Dykstra
+# steps of 19 sign iterations each; the sign iteration's Jacobian grows
+# directions of small eigenvalues up to 2.57x per iteration, and so the
+# rounding of the two devices' different summation orders: this script
+# read 1.3e-10 of the drift's scale on an H100 at 700 W.
+MCMC_PROJECTED_DRIFT_TOL = 1e-9
+MCMC_SMALL_SHOTS = 2_000
+MCMC_CHAIN_STEPS = 50
+MCMC_STATE = (1000, 1000, 8)
+# (d): n_points cut from 600 and burn_steps from 4,000 to fit the time limit
+MCMC_PROCESS = (3, 2_000, 400, 500, 4, 8)
+MCMC_BOOT_POINTS = 400
+MCMC_FOUR = (500, 200, 200)
+MCMC_PROJECTED_STEPS = 10
+MCMC_HOLDER = (200, 200)
+MCMC_TP_TOL = 1e-5
+MCMC_MIN_EIG = -1e-6
+MCMC_IDLE_STEPS = 20
+# each row's audit pass runs these options (shorter chains, the same code)
+MCMC_AUDIT_STATE = dict(n_points=16, burn_steps=8, adapt_step=False)
+MCMC_AUDIT_BME = dict(n_samples=4, burn_steps=4, adapt_step=False)
+MCMC_AUDIT_PROCESS = dict(n_points=8, burn_steps=8, adapt_step=False, thinning=1,
+                          mode_seek=5, curv_probes=2)
+MCMC_AUDIT_FOUR = dict(n_points=4, burn_steps=2, mode_seek=5, curv_probes=2)
 
 
 def log(msg: str) -> None:
@@ -1189,6 +1240,7 @@ def _process_flagship(card):
         qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=12, channel=center).setup()
 
     log_idle_share("the process bootstrap call", call, best_ms)
+    return tmg
 
 
 def _process_eigh_row(card):
@@ -1220,9 +1272,9 @@ def _process_eigh_row(card):
 def phase8_process(card):
     log("[8] process tomography on the card")
     launches = _process_small_checks()
-    _process_flagship(card)
+    tmg = _process_flagship(card)
     _process_eigh_row(card)
-    return launches
+    return launches, tmg
 
 
 def _interval_twins(tmg):
@@ -1703,6 +1755,468 @@ def phase9_intervals(card):
     log(f"    phase 9: {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 10: the MCMC intervals -----------------------------------------------
+
+
+class StepCounter:
+    """Counts the steps of every device chain run while it is active, by
+    wrapping `mhmc._run_chain`: `steps` the loop's iterations, `chain_steps`
+    those times the chains side by side."""
+
+    def __init__(self):
+        self.steps = self.chain_steps = 0
+
+    def __enter__(self):
+        from quantpy_tpu_torch import mhmc
+
+        self._run_chain = run_chain = mhmc._run_chain
+
+        def counted(gen, x0, *args, **kwargs):
+            n_steps = int(args[4])
+            self.steps += n_steps
+            self.chain_steps += n_steps * max(1, x0[..., 0].numel())
+            return run_chain(gen, x0, *args, **kwargs)
+
+        mhmc._run_chain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from quantpy_tpu_torch import mhmc
+
+        mhmc._run_chain = self._run_chain
+
+
+def _close(what, card_vals, cpu_vals, tol=MCMC_CARD_TOL):
+    """Raise unless max |card - cpu| <= tol (1 + max |cpu|)."""
+    a = torch.as_tensor(card_vals).detach().cpu().double()
+    b = torch.as_tensor(cpu_vals).detach().cpu().double()
+    err = float((a - b).abs().max())
+    scale = 1.0 + float(b.abs().max())
+    log(f"    {what}: card vs CPU max |diff| {err:.3e} (limit {tol:.0e} x {scale:.3e})")
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: the card and the CPU disagree by {err}")
+
+
+def _mcmc_targets(tmg_state, tmg_process):
+    """The chains' targets of the 2-qubit tomographs: name -> (target,
+    start)."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops.cholesky import np_matrix_to_real_tril_vec
+
+    mat = tmg_state.reconstructed_state.matrix + 1e-7 * np.eye(4)
+    total = float(np.sum(tmg_state.n_measurements))
+    targets = {"state (Cholesky, count-weighted)": (
+        lambda x: -total * tmg_state._nll(x),
+        np_matrix_to_real_tril_vec(mat / np.trace(mat).real))}
+    choi = np.asarray(tmg_process.reconstructed_channel.choi.bloch)
+    targets["process 'bloch'"] = (lambda y: -tmg_process._nll(y), choi)
+    for name, options in (("process kraus anchored, whitened",
+                           dict(parametrization="kraus", proposal="mala")),
+                          ("process projected (NS Dykstra 100, K-FAC whitened)",
+                           dict(proposal="mala"))):
+        iv = qtt.MHMCProcessInterval(tmg_process, mode_seek=0, curv_probes=0, **options)
+        iv.channel = tmg_process.reconstructed_channel
+        if options.get("parametrization") == "kraus":
+            targets[name] = iv._kraus_target(choi, 1.0)
+        else:
+            targets[name] = iv._projected_target(choi, 1.0)
+    return targets
+
+
+def _mcmc_small_checks():
+    """Phase 10, part (a): the chains' pieces at 2 qubits in float64, the
+    card against the CPU on the same inputs."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch import mhmc
+    from quantpy_tpu_torch.tomography import process_core
+
+    f64 = torch.float64
+    st = qtt.StateTomograph(qtt.GHZ(2), key=101, dtype=f64)
+    st.experiment(N_SHOTS, "proj-set")
+    st.point_estimate("lin")
+    pt = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=102, dtype=f64)
+    pt.experiment(MCMC_SMALL_SHOTS)
+    pt.point_estimate("lifp")
+    twins = _interval_twins(st), _interval_twins(pt)
+    twins[0].reconstructed_state = st.reconstructed_state
+    twins[1].reconstructed_channel = pt.reconstructed_channel
+    on_card, on_cpu = _mcmc_targets(st, pt), _mcmc_targets(*twins)
+    rng = np.random.default_rng(10)
+    for name, (target, start) in on_card.items():
+        cpu_target, cpu_start = on_cpu[name]
+        start = np.asarray(torch.as_tensor(start).cpu(), dtype=np.float64)
+        xs = start + 1e-3 * rng.normal(size=(3,) + start.shape)
+        values, drifts = mhmc._value_and_grad(target, torch.as_tensor(xs, device=DEVICE))
+        cpu_values, cpu_drifts = mhmc._value_and_grad(cpu_target, torch.as_tensor(xs))
+        if values.device.type != DEVICE:
+            raise AssertionError(f"the {name} target ran on {values.device}")
+        _close(f"{name} target", values, cpu_values)
+        _close(f"{name} autograd drift", drifts, cpu_drifts,
+               MCMC_PROJECTED_DRIFT_TOL if name.startswith("process projected") else MCMC_CARD_TOL)
+
+    # the kraus decodes and the anchor pack's exact-delta decode
+    d = 16
+    y0 = process_core.np_kraus_param_from_choi_bloch(pt.reconstructed_channel.choi.bloch)
+    ys = y0 + 0.05 * rng.normal(size=(4, 2, d, d))
+    a_l, a_r, a_l_inv, a_r_inv = process_core.kraus_design_whitener(
+        pt._input_blochs_t(), twins[1]._nll_operands()[1].numpy(),
+        np.concatenate([t.flat_results for t in pt.tomographs]),
+        pt.reconstructed_channel.choi.bloch)
+    pack, x_ref = process_core.np_kraus_anchor_pack(a_l_inv @ (y0[0] + 1j * y0[1]) @ a_r_inv,
+                                                    a_l, a_r)
+    dz = np.concatenate([1e-3 * rng.normal(size=(3, 2, d, d)), rng.normal(size=(1, 2, d, d))])
+    for name, fn, arg in (
+        ("kraus_param_to_choi_bloch", process_core.kraus_param_to_choi_bloch, ys),
+        ("kraus_param_to_choi_bloch_whitened",
+         lambda y: process_core.kraus_param_to_choi_bloch_whitened(y, a_l, a_r), ys),
+        ("kraus_delta_choi_bloch (both branches)",
+         lambda z: process_core.kraus_delta_choi_bloch(z, pack), dz),
+    ):
+        _close(name, fn(torch.as_tensor(arg, device=DEVICE)), fn(torch.as_tensor(arg)))
+
+    # 50 MH and 50 MALA steps from one set of draws
+    for name, use_mala, step in (("state (Cholesky, count-weighted)", False, 1e-3),
+                                 ("process kraus anchored, whitened", True, 2e-3)):
+        finals, counts = [], []
+        for targets, device in ((on_card, DEVICE), (on_cpu, "cpu")):
+            target, start = targets[name]
+            x = torch.as_tensor(np.asarray(torch.as_tensor(start).cpu()), device=device)
+            draws = np.random.default_rng(11)
+            deltas = torch.as_tensor(draws.normal(size=(MCMC_CHAIN_STEPS,) + tuple(x.shape)),
+                                     device=device)
+            log_us = torch.log(torch.as_tensor(draws.uniform(size=MCMC_CHAIN_STEPS),
+                                               device=device))
+            drift_fn = mhmc.autograd_drift(target)
+            logp, drift = mhmc._value_and_drift(target, drift_fn, x)
+            states, accepted = [], 0
+            for delta, log_u in zip(deltas, log_us):
+                if use_mala:
+                    x, logp, drift, acc = mhmc.mala_step(x, logp, drift, delta, log_u, target,
+                                                         drift_fn, step)
+                else:
+                    x, logp, acc = mhmc.mh_step(x, logp, delta, log_u, target,
+                                                mhmc.normalized_update, step)
+                states.append(x)
+                accepted += int(acc)
+            finals.append(torch.stack(states))
+            counts.append(accepted)
+        kind = "MALA" if use_mala else "MH"
+        log(f"    {MCMC_CHAIN_STEPS} {kind} steps of the {name} target from one set of draws: "
+            f"accepted {counts[0]} on the card, {counts[1]} on the CPU")
+        if counts[0] != counts[1]:
+            raise AssertionError(f"the {kind} chains accepted {counts} steps")
+        _close(f"{kind} chain states", finals[0], finals[1])
+
+
+def _allowed_wide_ops():
+    """The float64 operations of the float32 anchored NLL's reduction
+    (forward and backward), the only ones a float32 row may run."""
+    from quantpy_tpu_torch.tomography import process_core
+
+    dp = torch.full((2, 8), 1e-3, device=DEVICE, requires_grad=True)
+    counts = torch.ones(8, dtype=torch.float64, device=DEVICE)
+    audit = DeviceAudit()
+    with audit:
+        value = process_core._rel_nll_from_dp(dp, counts, counts / 8)
+        torch.autograd.grad(value.sum(), dp)
+    return audit.wide
+
+
+def _audited(what, run, allowed, **small):
+    """Run `run(**small)`, a short pass of a row, under the device audit:
+    no kernel launch, nothing off the card and no float64 operation outside
+    `allowed`. Then run the row itself, `run()`, unaudited (the audit's
+    Python dispatch would slow it): no kernel launch. Returns run()'s value,
+    its wall time in seconds and its StepCounter; the peak memory counts
+    from its start."""
+    _reset_launches()
+    audit = DeviceAudit()
+    with audit:
+        run(**small)
+        torch.cuda.synchronize()
+    _check_no_kernel_and_on_card(audit, f"{what}, audit pass {small}")
+    extra = sorted(audit.wide - allowed)
+    log(f"    float64 / complex128 operations in it: {sorted(audit.wide) or 'none'}")
+    if extra:
+        raise AssertionError(f"{what}: float64 operations outside the NLL's reduction: {extra}")
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepCounter() as counter:
+        out = run()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    from quantpy_tpu_torch.ops import kernels
+
+    launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    log(f"    {what}: rhor_mle / rhor_mle_flat launches {launched} (the unaudited run)")
+    if launched != (0, 0):
+        raise AssertionError(f"{what} launched an RrhoR kernel: {launched}")
+    return out, seconds, counter
+
+
+def _span_idle_share(what, chain, x, n_steps=None):
+    """The idle share of `n_steps` (default MCMC_IDLE_STEPS) steps of
+    `chain` from the states x."""
+    n_steps = n_steps or MCMC_IDLE_STEPS
+    chain._run_span(x, n_steps)  # warm
+    wall = cuda_ms(lambda: chain._run_span(x, n_steps), 1)
+    log_idle_share(f"{what}, {n_steps} steps of {max(1, x[..., 0].numel())} chains", lambda:
+                   chain._run_span(x, n_steps), wall)
+    return wall / n_steps
+
+
+def _print_chain_row(name, iv, seconds, counter, card, levels=(0.5, 0.9)):
+    import numpy as np
+
+    dist, _ = iv(np.asarray(levels))
+    if not (np.all(np.isfinite(dist)) and np.all(np.diff(dist) >= 0)):
+        raise AssertionError(f"{name}: distances {dist} not finite and non-decreasing")
+    log(f"      {name}: {seconds:.3f} s, {counter.steps} steps ({counter.chain_steps} chain-steps) "
+        f"= {counter.steps / seconds:.1f} steps/s ({counter.chain_steps / seconds:.1f} "
+        f"chain-steps/s); acceptance {iv.acceptance_rate:.4f}, step {iv.chain.step:.4g}; R-hat "
+        f"{iv.r_hat:.4f}, ESS {iv.ess:.1f}; d50/d90 {[round(float(v), 6) for v in dist]}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {card}")
+    return dist
+
+
+def _mcmc_state_rows(card, tmg, est, allowed):
+    """Phase 10, parts (b) and (c): the MHMC state interval and the Bayesian
+    mean on phase 3's GHZ-4 experiment."""
+    import quantpy_tpu_torch as qtt
+
+    n_points, burn, n_chains = MCMC_STATE
+    tmg.reconstructed_state = est
+
+    def state_interval(n_points=n_points, burn_steps=burn, adapt_step=True):
+        return _setup(qtt.MHMCStateInterval(
+            tmg, n_points=n_points, burn_steps=burn_steps, adapt_step=adapt_step,
+            n_chains=n_chains, key=31))
+
+    iv, seconds, counter = _audited("MHMCStateInterval", state_interval, allowed,
+                                    **MCMC_AUDIT_STATE)
+    log(f"    (b) MHMCStateInterval on GHZ({N_QUBITS}), proj-set, {N_SHOTS} shots, float32: "
+        f"n_points {n_points}, burn_steps {burn}, adapt_step, {n_chains} chains")
+    _print_chain_row("MHMCStateInterval", iv, seconds, counter, card)
+    x = iv.chain.x_t.expand(n_chains, -1).clone()
+    ms = _span_idle_share("the state chain", iv.chain, x)
+    log(f"      one step of {n_chains} chains: {ms:.3f} ms")
+
+    def bme(**small):
+        return qtt.bayesian_mean_estimate(tmg, key=32, **small)
+
+    (rho, radius, diag), seconds, counter = _audited("bayesian_mean_estimate", bme, allowed,
+                                                     **MCMC_AUDIT_BME)
+    hs_bme = float(qtt.hs_dst(rho, tmg.state))
+    hs_rhor = float(qtt.hs_dst(est, tmg.state))
+    log(f"    (c) bayesian_mean_estimate (8 chains x 500 samples, thinning 2, burn 500, adapt): "
+        f"{seconds:.3f} s, {counter.steps} steps ({counter.chain_steps} chain-steps); acceptance "
+        f"{diag['acceptance_rate']:.4f}, step {diag['step']:.4g}; credible radius (0.9) "
+        f"{radius:.6f}; hs to the true state: posterior mean {hs_bme:.6f}, RrhoR estimate "
+        f"{hs_rhor:.6f}")
+    if not (rho.is_density_matrix(verbose=False) and 0 < radius < 1 and hs_bme < 0.1):
+        raise AssertionError(f"the posterior mean is off: radius {radius}, hs {hs_bme}")
+
+
+def _setup(iv):
+    iv.setup()
+    return iv
+
+
+def _check_cptp_samples(what, mats):
+    import numpy as np
+
+    mats = np.asarray(mats)
+    d = mats.shape[-1]
+    d_in = int(round(math.sqrt(d)))
+    tr_out = np.einsum("sibjb->sij", mats.reshape(-1, d_in, d_in, d_in, d_in))
+    tp_err = float(np.abs(tr_out - np.eye(d_in)).max())
+    min_eig = float(np.linalg.eigvalsh(mats).min())
+    log(f"      {what}: {mats.shape[0]} decoded samples, max |Tr_out C - I| {tp_err:.3e} (limit "
+        f"{MCMC_TP_TOL:.0e}), least eigenvalue {min_eig:.3e} (limit {MCMC_MIN_EIG:.0e})")
+    if not (tp_err <= MCMC_TP_TOL and min_eig >= MCMC_MIN_EIG):
+        raise AssertionError(f"{what}: a decoded sample is not CPTP")
+
+
+def _mcmc_process_rows(card, tmg4, allowed):
+    """Phase 10, parts (d) and (e): the 3-qubit process posterior and the
+    4-qubit rows."""
+    import warnings
+
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+
+    n, shots, n_points, burn, n_chains, thinning = MCMC_PROCESS
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.15, n), key=5)  # default device, float32
+    tmg.experiment(shots, "proj-set")
+    tmg.point_estimate("lifp")
+
+    def posterior(**small):
+        options = dict(n_points=n_points, burn_steps=burn, adapt_step=True, thinning=thinning)
+        options.update(small)
+        out = qtt.MHMCProcessInterval(
+            tmg, step=0.01, parametrization="kraus", proposal="mala", n_chains=n_chains,
+            return_samples=True, key=7, **options)
+        return out, out.setup()[3]
+
+    (iv, samples), seconds, counter = _audited(f"the {n}-qubit kraus-MALA interval",
+                                               posterior, allowed, **MCMC_AUDIT_PROCESS)
+    log(f"    (d) MHMCProcessInterval, depolarizing(0.15, {n}), proj-set, {shots} shots, "
+        f"float32: anchored kraus-MALA, whitened, mode_seek 500, 32 curvature probes, "
+        f"{n_chains} chains, thinning {thinning}, {n_points} points, burn {burn} (the example's "
+        "600 points and 4,000 burn-in steps cut to fit phase 10's time), adapt")
+    dist = _print_chain_row("kraus-MALA", iv, seconds, counter, card)
+    _check_cptp_samples("kraus-MALA", samples)
+    boot = qtt.BootstrapProcessInterval(tmg, n_points=MCMC_BOOT_POINTS, key=8, cp_engine="ns")
+    boot_dist, _ = boot(np.array([0.5, 0.9]))
+    log(f"      beside BootstrapProcessInterval({MCMC_BOOT_POINTS} resamples, the 'ns' engine) d50/d90 "
+        f"{[round(float(v), 6) for v in boot_dist]}; chain / bootstrap "
+        f"{[round(float(a / b), 4) for a, b in zip(dist, boot_dist)]}")
+    x = iv.chain.x_t.expand(n_chains, -1).clone()
+    ms = _span_idle_share("the 3-qubit kraus-MALA chain", iv.chain, x)
+    log(f"      one step of {n_chains} chains: {ms:.3f} ms")
+
+    n4 = tmg4.channel.n_qubits
+    seek, burn4, points4 = MCMC_FOUR
+
+    def four(n_points=points4, burn_steps=burn4, mode_seek=seek, curv_probes=32):
+        return _setup(qtt.MHMCProcessInterval(
+            tmg4, n_points=n_points, burn_steps=burn_steps, parametrization="kraus",
+            proposal="mala", mode_seek=mode_seek, curv_probes=curv_probes, key=9))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        iv4, seconds, counter = _audited(f"the {n4}-qubit kraus-MALA chain", four, allowed,
+                                         **MCMC_AUDIT_FOUR)
+    fired = any(issubclass(w.category, RuntimeWarning) and "NOT converged" in str(w.message)
+                and f"R-hat {iv4.r_hat:.2f}" in str(w.message) for w in caught)
+    log(f"    (e) {n4} qubits, depolarizing(0.1, {n4}), {len(tmg4.tomographs)} inputs, proj-set, "
+        f"2000 shots, float32: anchored kraus-MALA, mode_seek {seek}, burn {burn4}, "
+        f"{points4} points, 1 chain, no adaptation")
+    _print_chain_row("kraus-MALA", iv4, seconds, counter, card)
+    log(f"      {seconds / counter.steps * 1e3:.3f} ms per step (mode seeking and the curvature "
+        f"probes included); the non-convergence RuntimeWarning fired: {fired}")
+    ms = _span_idle_share(f"the {n4}-qubit kraus-MALA chain", iv4.chain, iv4.chain.x_t)
+    log(f"      one step: {ms:.3f} ms")
+    _anchored_rounding_field(iv4)
+
+    def projected(n_points=MCMC_PROJECTED_STEPS):
+        return _setup(qtt.MHMCProcessInterval(tmg4, n_points=n_points, burn_steps=0,
+                                              proposal="mala", step=1e-3, key=10))
+
+    iv4b, seconds, counter = _audited(f"the {n4}-qubit projected 'bloch' MALA chain",
+                                      projected, allowed, n_points=1)
+    log(f"      projected-target 'bloch' MALA (K-FAC whitened, NS Dykstra 100 with autograd), "
+        f"{counter.steps} steps: {seconds:.3f} s = {seconds / counter.steps * 1e3:.1f} ms per "
+        f"step with the setup and the reported projections; acceptance "
+        f"{iv4b.acceptance_rate:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"MiB on {card}")
+
+
+def _anchored_rounding_field(iv):
+    """The float32 anchored target against its float64 evaluation on the
+    same anchor and offsets: the chain's state dz and 15 offsets around it
+    that raise the NLL by O(10^2). The spread is the rounding field the chain's
+    acceptance ratios see."""
+    import numpy as np
+
+    from quantpy_tpu_torch.tomography import process_core
+
+    pack, x_ref = iv._kraus_anchor
+    b, w, flat = iv._design_arrays()
+    d1 = b.shape[-1]
+    p_ref = d1 * (b @ x_ref.reshape(d1, d1) @ w.T).reshape(-1)
+    # the chain runs in u = dz / s, unit curvature per coordinate by the
+    # Hutchinson diagonal; offsets s N(0, 1) / sqrt(dim) raise the NLL by
+    # O(10^2), the scale of the acceptance ratios near the mode
+    scale = iv._kraus_uscale / math.sqrt(iv._kraus_uscale.size)
+    dz0 = iv.chain.x_t.double().cpu().numpy() * iv._kraus_uscale
+    rng = np.random.default_rng(12)
+    pts = dz0 + rng.normal(size=(16, dz0.size)) * scale * np.r_[0.0, np.ones(15)][:, None]
+    values = {}
+    for dtype in (torch.float32, torch.float64):
+        args = [torch.as_tensor(a, dtype=dtype, device=DEVICE) for a in (pts, b, w)]
+        values[dtype] = process_core.process_nll_anchored(
+            *args, torch.as_tensor(flat, dtype=torch.float64, device=DEVICE), pack,
+            torch.as_tensor(p_ref, dtype=torch.float64, device=DEVICE)).double().cpu().numpy()
+    gap = np.abs(values[torch.float32] - values[torch.float64])
+    log(f"      anchored NLL, float32 decode + float64 reduction against float64 throughout, at "
+        f"the chain's state and 15 offsets around it: max |diff| {gap.max():.4e}, rms "
+        f"{np.sqrt(np.mean(gap**2)):.4e}; the float64 NLLs span "
+        f"[{values[torch.float64].min():.3f}, {values[torch.float64].max():.3f}]")
+
+
+def _mcmc_holder_and_metrics(card, allowed):
+    """Phase 10, parts (f) and (g)."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch import metrics
+
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=41)  # default device, float32
+    tmg.experiment(MCMC_SMALL_SHOTS)
+    n_points, burn = MCMC_HOLDER
+    # the audit pass runs a 1-qubit channel's 4 children: the same code
+    # as the 16 children of the 2-qubit row
+    small = qtt.ProcessTomograph(qtt.depolarizing(0.1, 1), key=42)
+    small.experiment(MCMC_SMALL_SHOTS)
+
+    def holder(process=tmg, n_points=n_points, burn_steps=burn):
+        return _setup(qtt.HolderInterval(process, n_points=n_points, kind="mhmc",
+                                         burn_steps=burn_steps))
+
+    iv, seconds, counter = _audited("HolderInterval('mhmc')", holder, allowed, process=small,
+                                    n_points=8, burn_steps=8)
+    dist, _ = iv(np.asarray(ANALYTIC_LEVELS))
+    log(f"    (f) HolderInterval('mhmc'), depolarizing(0.1, 2), {len(tmg.tomographs)} children, "
+        f"n_points {n_points}, burn {burn}, float32: {seconds:.3f} s, {counter.steps} steps; "
+        f"radii {[round(float(v), 6) for v in dist]} at cl {ANALYTIC_LEVELS}")
+    if not (np.all(np.isfinite(dist)) and np.all(dist >= 0) and np.all(np.diff(dist) >= 0)):
+        raise AssertionError(f"HolderInterval('mhmc') radii {dist} not finite and monotone")
+
+    def levels_state(n_points=100, burn_steps=100):
+        return metrics.get_CL_list_state(qtt.GHZ(2), interval="mhmc", n_iter=2,
+                                         n_measurements=1000, n_points=n_points,
+                                         burn_steps=burn_steps)
+
+    def levels_channel(n_points=100, burn_steps=100):
+        return metrics.get_CL_list_channel(qtt.depolarizing(0.1, 1), interval="mhmc",
+                                           n_iter=2, n_measurements=1000, n_points=n_points,
+                                           burn_steps=burn_steps, step=0.005)
+
+    for what, run in (("get_CL_list_state(GHZ(2), 'mhmc')", levels_state),
+                      ("get_CL_list_channel(depolarizing(0.1, 1), 'mhmc')", levels_channel)):
+        levels, seconds, _ = _audited(what, run, allowed, n_points=8, burn_steps=8)
+        log(f"    (g) {what}, 2 experiments: {seconds:.3f} s, achieved levels "
+            f"{[round(float(v), 4) for v in levels]}")
+        if not (levels.shape == (2,) and np.all((levels >= 0) & (levels <= 1))):
+            raise AssertionError(f"{what}: levels {levels} outside [0, 1]")
+
+
+def phase10_mcmc(card, tmg, est, tmg4):
+    log("[10] the MCMC intervals on the card")
+    t0 = time.perf_counter()
+    log("    (a) 2 qubits, float64, the card against the CPU")
+    _mcmc_small_checks()
+    allowed = _allowed_wide_ops()
+    log(f"    float64 operations of the anchored NLL's reduction, the only ones allowed in the "
+        f"float32 rows: {sorted(allowed)}")
+    log(f"    (a): {time.perf_counter() - t0:.1f} s")
+    for part, run in (("(b), (c)", lambda: _mcmc_state_rows(card, tmg, est, allowed)),
+                      ("(d), (e)", lambda: _mcmc_process_rows(card, tmg4, allowed)),
+                      ("(f), (g)", lambda: _mcmc_holder_and_metrics(card, allowed))):
+        t1 = time.perf_counter()
+        run()
+        log(f"    {part}: {time.perf_counter() - t1:.1f} s")
+    log(f"    phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -1714,8 +2228,10 @@ def main() -> int:
     flat_launches = phase5_flat_path(card, tmg, est)
     phase6_cholesky_mle(card)
     phase7_kron(card)
-    launches += phase8_process(card)
+    process_launches, process_tmg = phase8_process(card)
+    launches += process_launches
     phase9_intervals(card)
+    phase10_mcmc(card, tmg, est, process_tmg)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

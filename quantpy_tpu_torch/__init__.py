@@ -22,7 +22,7 @@ The default device is the card, ``cuda`` (`config.get_device()`); CPU work
 is asked for with ``config.set_device("cpu")`` or ``device="cpu"``.
 """
 
-from . import basis, channel, config, convex, operator, qobj, routines, stats
+from . import basis, channel, config, convex, metrics, mhmc, operator, qobj, routines, stats
 from .base import BaseQuantum
 from .basis import Basis
 from .channel import (
@@ -40,10 +40,13 @@ from .ops.geometry import fidelity, hs_dst, if_dst, product, trace_dst
 from .ops.paulis import generate_pauli
 from .qobj import GHZ, Qobj, fully_mixed, zero
 from .routines import join_gates, kron
+from .tomography.bayes import bayesian_mean_estimate
 from .tomography.interval import (
     BootstrapProcessInterval,
     BootstrapStateInterval,
     HolderInterval,
+    MHMCProcessInterval,
+    MHMCStateInterval,
     MomentFidelityProcessInterval,
     MomentFidelityStateInterval,
     MomentInterval,
@@ -86,6 +89,9 @@ __all__ = [
     "PolytopeStateInterval",
     "PolytopeProcessInterval",
     "HolderInterval",
+    "MHMCStateInterval",
+    "MHMCProcessInterval",
+    "bayesian_mean_estimate",
     "depolarizing",
     "dephasing",
     "amplitude_damping",
@@ -101,4 +107,6 @@ __all__ = [
     "routines",
     "convex",
     "stats",
+    "metrics",
+    "mhmc",
 ]

@@ -5,6 +5,8 @@ from .interval import (
     BootstrapProcessInterval,
     BootstrapStateInterval,
     HolderInterval,
+    MHMCProcessInterval,
+    MHMCStateInterval,
     MomentFidelityProcessInterval,
     MomentFidelityStateInterval,
     MomentInterval,
@@ -27,4 +29,6 @@ __all__ = [
     "PolytopeStateInterval",
     "PolytopeProcessInterval",
     "HolderInterval",
+    "MHMCStateInterval",
+    "MHMCProcessInterval",
 ]

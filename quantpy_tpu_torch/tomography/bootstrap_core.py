@@ -17,10 +17,11 @@ import torch
 
 from ..config import as_real
 from ..ops import geometry
-from ..ops.paulis import bloch_to_matrix
+from ..ops.cholesky import real_tril_vec_to_matrix
+from ..ops.paulis import bloch_to_matrix, matrix_to_bloch
 from . import state_core
 
-__all__ = ["bootstrap_distances", "bootstrap_blochs"]
+__all__ = ["bootstrap_distances", "bootstrap_blochs", "tril_samples_distance"]
 
 
 def _distance_batch(name: str, blochs, bloch_ref, n_qubits: int):
@@ -38,6 +39,15 @@ def _distance_batch(name: str, blochs, bloch_ref, n_qubits: int):
     rho_b = bloch_to_matrix(blochs, n_qubits)
     rho_r = bloch_to_matrix(bloch_ref, n_qubits)
     return geometry.resolve_distance(name)(rho_b, rho_r)
+
+
+def tril_samples_distance(name: str, tril_vecs, bloch_ref, n_qubits: int):
+    """Distances of Cholesky-parametrized samples (..., 4^n), each
+    normalized to unit trace, to a reference state: the MHMC state
+    interval's distances."""
+    rho = real_tril_vec_to_matrix(as_real(tril_vecs), 2**n_qubits)
+    tr = torch.diagonal(rho, dim1=-2, dim2=-1).sum(-1).real
+    return _distance_batch(name, matrix_to_bloch(rho) / tr[..., None], bloch_ref, n_qubits)
 
 
 def bootstrap_blochs(

@@ -12,13 +12,14 @@ after a lazily invoked `setup()`. Ported:
   batched PDHG linear programs in the tomograph's dtype on its device;
 - BootstrapState/ProcessInterval: parametric bootstraps, all resamples in
   one batched call;
+- MHMCState/ProcessInterval: likelihood sampling with the device chains of
+  `mhmc` (Cholesky, projected-bloch and kraus-factor parametrizations);
 - HolderInterval: a process bound composed from per-input-state intervals.
-
-Not ported yet: the MHMC family (ROADMAP A14).
 """
 
 from __future__ import annotations
 
+import functools
 from abc import ABC, abstractmethod
 from enum import Enum, auto
 
@@ -32,6 +33,16 @@ from ..convex import (
     solve_lp_batch_factors,
     solve_lp_batch_kron,
 )
+from ..mhmc import (
+    MHMC,
+    autograd_drift,
+    basic_update,
+    effective_sample_size,
+    maximize_logpdf,
+    normalized_update,
+    split_rhat,
+)
+from ..ops.cholesky import np_matrix_to_real_tril_vec, np_real_tril_vec_to_matrix
 from ..ops.geometry import hs_dst, if_dst, trace_dst
 from ..ops.paulis import np_bloch_to_matrix
 from ..qobj import Qobj
@@ -51,6 +62,8 @@ __all__ = [
     "PolytopeProcessInterval",
     "BootstrapStateInterval",
     "BootstrapProcessInterval",
+    "MHMCStateInterval",
+    "MHMCProcessInterval",
     "HolderInterval",
     "Mode",
 ]
@@ -755,6 +768,583 @@ class BootstrapProcessInterval(ConfidenceInterval):
 
 
 # --------------------------------------------------------------------------
+# MHMC likelihood-sampling intervals
+# --------------------------------------------------------------------------
+
+#: split-R-hat above this triggers the non-convergence warning of the MHMC
+#: intervals (the practical thresholds of Vehtari et al. are 1.01-1.1; 1.2
+#: flags only decisively unmixed chains)
+RHAT_WARN_THRESHOLD = 1.2
+
+_MESH_MESSAGE = (
+    "mesh-sharded MHMC chains wait for the port of parallel/mesh.py (ROADMAP A15); "
+    "run the chains side by side on one device with n_chains instead"
+)
+
+#: the CPTP projection inside a process proposal or target reads its stop
+#: criterion every this many Dykstra iterations: at most 10 host reads per
+#: 100-iteration projection, against 100 when it is read after every one. A
+#: projection may run up to 9 iterations past the first one under its
+#: tolerance, which only tightens it.
+PROJECTION_READ_EVERY = 10
+
+
+def _warn_if_nonconverged(interval_name: str, r_hat: float, ess: float):
+    """Warn loudly when the chains have not mixed: the distances are then
+    quantiles of a non-stationary sample, not a confidence interval. The
+    4+ qubit process posterior is the known case (R-hat 1.9-3.5 in the JAX
+    package's records)."""
+    import warnings
+
+    if np.isfinite(r_hat) and r_hat > RHAT_WARN_THRESHOLD:
+        warnings.warn(
+            f"{interval_name}: chains have NOT converged "
+            f"(split R-hat {r_hat:.2f} > {RHAT_WARN_THRESHOLD}, "
+            f"ESS {ess:.0f}); the returned distances are quantiles of a "
+            "non-stationary sample and are not a valid confidence "
+            "interval. Increase n_points/burn_steps, use "
+            "parametrization='kraus' with proposal='mala' (<= 3 qubits), "
+            "or prefer the bootstrap interval (the recommended 4+ qubit "
+            "process CI).",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def _draw_chains(chain, n_points, n_chains, thinning, verbose):
+    """(samples (n_chains * per_chain, dim), acceptance, (n_chains,
+    per_chain)) of a sampler: `n_chains` chains side by side, or one."""
+    if n_chains > 1:
+        per_chain = -(-n_points // n_chains)
+        samples, rate = chain.sample_chains(per_chain, n_chains, thinning)
+        shape = samples.shape[:2]
+        return samples.reshape(-1, samples.shape[-1]), rate, shape
+    samples, rate = chain.sample(n_points, thinning, verbose=verbose)
+    return samples, rate, (1, samples.shape[0])
+
+
+def _finite_distances(dist, what):
+    dist = np.asarray(dist, dtype=np.float64)
+    if not np.all(np.isfinite(dist)):
+        raise FloatingPointError(f"{what}: {int(np.sum(~np.isfinite(dist)))} sample "
+                                 "distances are not finite")
+    return dist
+
+
+class MHMCStateInterval(ConfidenceInterval):
+    """Distances of likelihood samples (Cholesky parametrization) to the
+    point estimate.
+
+    `temper=True` (default) samples exp(-NLL) with the frequency-normalized
+    NLL, as the reference does: a posterior flattened by the total shot
+    count. `temper=False` samples the count-weighted likelihood.
+    `adapt_step=True` tunes the proposal scale during burn-in
+    (`MHMC.adapt_step`). `n_chains > 1` runs that many chains side by side,
+    each with its own burn-in, and `r_hat`, `ess` hold the diagnostics of
+    the distance series. `jump_distr` selects the proposal (see `MHMC`); an
+    asymmetric one needs `jump_logpdf` (callable(delta (..., dim)) ->
+    (...)). `key` is an int seed or a torch.Generator on the tomograph's
+    device (default seed 0). `mesh` is not ported (ROADMAP A15) and raises.
+    """
+
+    def __init__(
+        self,
+        tmg,
+        n_points: int = 1000,
+        step: float = 0.01,
+        burn_steps: int = 1000,
+        thinning: int = 1,
+        warm_start: bool = False,
+        use_new_estimate: bool = False,
+        state=None,
+        verbose: bool = False,
+        key=None,
+        temper: bool = True,
+        adapt_step: bool = False,
+        n_chains: int = 1,
+        jump_distr=None,
+        mesh=None,
+        jump_logpdf=None,
+    ):
+        super().__init__(
+            tmg, n_points=n_points, step=step, burn_steps=burn_steps,
+            thinning=thinning, warm_start=warm_start,
+            use_new_estimate=use_new_estimate, state=state, verbose=verbose,
+            key=key, temper=temper, adapt_step=adapt_step,
+            n_chains=n_chains, jump_distr=jump_distr, mesh=mesh,
+            jump_logpdf=jump_logpdf,
+        )
+
+    def setup(self):
+        if self.mode == Mode.CHANNEL:
+            raise NotImplementedError("This interval works only for state tomography")
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH_MESSAGE)
+        tmg = self.tmg
+        if not self.use_new_estimate:
+            self.state = tmg.reconstructed_state
+        elif self.state is None:
+            self.state = tmg.point_estimate(method="mle", physical=True)
+        n = tmg.state.n_qubits
+        if not (self.warm_start and hasattr(self, "chain")):
+            # a jitter for a strictly positive-definite Cholesky start
+            mat = self.state.matrix + 1e-7 * np.eye(self.state.matrix.shape[0])
+            mat = mat / np.trace(mat).real
+            scale = 1.0 if self.temper else float(np.sum(tmg.n_measurements))
+            self.chain = MHMC(
+                lambda x: -scale * tmg._nll(x),
+                jump_distr=self.jump_distr,
+                step=self.step,
+                burn_steps=self.burn_steps,
+                dim=4**n,
+                update_rule=normalized_update,
+                symmetric=self.jump_logpdf is None,
+                jump_logpdf=self.jump_logpdf,
+                x_init=tmg._tensor(np_matrix_to_real_tril_vec(mat)),
+                key=self.key,
+            )
+            if self.adapt_step:
+                self.chain.adapt_step()
+        samples, self.acceptance_rate, chain_shape = _draw_chains(
+            self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
+        )
+        dst_name = _DST_NAMES.get(tmg.dst)
+        if dst_name is not None:
+            dist = bootstrap_core.tril_samples_distance(
+                dst_name, tmg._tensor(samples), tmg._tensor(self.state.bloch), n
+            ).cpu().numpy()
+        else:  # a custom distance runs on the host
+            rho = np_real_tril_vec_to_matrix(np.asarray(samples, dtype=np.float64))
+            rho = rho / np.trace(rho, axis1=-2, axis2=-1).real[..., None, None]
+            dist = [tmg.dst(Qobj(r), self.state) for r in rho]
+        dist = _finite_distances(dist, type(self).__name__)
+        per_chain_dist = dist.reshape(chain_shape)
+        self.r_hat = split_rhat(per_chain_dist)
+        self.ess = effective_sample_size(per_chain_dist)
+        _warn_if_nonconverged(type(self).__name__, self.r_hat, self.ess)
+        dist = np.sort(dist)
+        self.cl_to_dist = _interp1d(np.linspace(0, 1, len(dist)), dist)
+
+
+def _hutchinson_diagonal(target, dim: int, n_probes: int, dtype, device, seed: int = 2024):
+    """Hutchinson estimate of the diagonal of the Hessian of -target at 0:
+    the mean of v * (H v) over `n_probes` Rademacher probes v from a
+    generator seeded `seed`, the Hessian-vector products by double
+    backward, probes in batches of at most 2^20 / dim."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    acc = torch.zeros(dim, dtype=dtype, device=device)
+    batch = max(1, min(int(n_probes), (1 << 20) // dim))
+    done = 0
+    while done < n_probes:
+        k = min(batch, n_probes - done)
+        v = torch.randint(0, 2, (k, dim), generator=gen, device=device).to(dtype) * 2 - 1
+        with torch.enable_grad():
+            z = torch.zeros((k, dim), dtype=dtype, device=device, requires_grad=True)
+            (g,) = torch.autograd.grad(-target(z).sum(), z, create_graph=True)
+            (hv,) = torch.autograd.grad(g, z, grad_outputs=v)
+        acc += (v * hv).sum(0)
+        done += k
+    return acc / n_probes
+
+
+class MHMCProcessInterval(ConfidenceInterval):
+    """Likelihood sampling over Choi matrices.
+
+    'bloch' (default) at 1-3 qubits samples Choi bloch vectors with
+    CPTP-projected proposals (`ProcessTomograph._cptp_update_rule`; the
+    projection reads its criterion every `PROJECTION_READ_EVERY`
+    iterations). From `PROJECTED_TARGET_QUBITS` up it samples unconstrained
+    y against exp(-NLL(P(y))), P the Newton-Schulz CPTP projection, and
+    reports P(y): the project-the-proposal scheme freezes there (the JAX
+    package measured acceptance 0 at step 1e-9). `proposal='mala'` (this
+    mode only) takes the gradient through the fixed-length differentiable
+    projection; `precondition=True` runs the chain in Kronecker-Fisher
+    whitened coordinates (`process_core.kron_fisher_whitener`), and
+    `precondition=False` with the random walk takes the legacy diagonal
+    Fisher proposal.
+
+    'kraus' samples a smooth, exactly CPTP factor M
+    (`process_core.kraus_param_to_choi_bloch`) with either proposal; with
+    `precondition=True` in design-whitened coordinates
+    (`process_core.kraus_design_whitener`). `mode_seek` (default 500 in
+    kraus mode) first ascends the target with that many Adam steps.
+    `anchored=True` (default) evaluates the target as an exact delta from a
+    float64 anchor (`process_core.np_kraus_anchor_pack`), re-anchored at
+    the mode after `mode_seek`; `curv_probes` (anchored only; 0 disables)
+    rescales the coordinates by a Hutchinson estimate of the Hessian
+    diagonal at the anchor, from Rademacher probes of a generator seeded
+    2024. Non-anchored float32 kraus targets evaluate the current state's
+    log-density afresh every step (`refresh_logp`).
+
+    `temper=True` divides the NLL by the total count. `return_samples=True`
+    makes `setup()` return (distances, levels, acceptance, Choi matrices).
+    At 4+ qubits the chains do not converge in the JAX package either (its
+    docs/benchmarks.md): use `BootstrapProcessInterval` there; the R-hat
+    warning fires when chains move but do not mix (a chain that accepts
+    nothing reads R-hat 1.0). `key` is an int seed or a torch.Generator on
+    the tomograph's device (default seed 0). `mesh` is not ported (ROADMAP
+    A15) and raises.
+    """
+
+    #: from this qubit count on, 'bloch' samples the projected-likelihood target
+    PROJECTED_TARGET_QUBITS = 4
+
+    def __init__(
+        self,
+        tmg,
+        n_points: int = 1000,
+        step: float = 0.01,
+        burn_steps: int = 1000,
+        thinning: int = 1,
+        warm_start: bool = False,
+        method: str = "lifp",
+        states_est_method: str = "lin",
+        states_physical: bool = True,
+        states_init: str = "lin",
+        use_new_estimate: bool = False,
+        channel=None,
+        verbose: bool = False,
+        return_samples: bool = False,
+        key=None,
+        adapt_step: bool = False,
+        n_chains: int = 1,
+        jump_distr=None,
+        mesh=None,
+        jump_logpdf=None,
+        temper: bool = False,
+        proposal: str = "rw",
+        precondition: bool = True,
+        parametrization: str = "bloch",
+        mode_seek: int | None = None,
+        anchored: bool = True,
+        curv_probes: int = 32,
+    ):
+        super().__init__(
+            tmg, n_points=n_points, step=step, burn_steps=burn_steps,
+            thinning=thinning, warm_start=warm_start, method=method,
+            states_est_method=states_est_method,
+            states_physical=states_physical, states_init=states_init,
+            use_new_estimate=use_new_estimate, channel=channel,
+            verbose=verbose, return_samples=return_samples, key=key,
+            adapt_step=adapt_step, n_chains=n_chains, jump_distr=jump_distr,
+            mesh=mesh, jump_logpdf=jump_logpdf, temper=temper,
+            proposal=proposal, precondition=precondition,
+            parametrization=parametrization, mode_seek=mode_seek,
+            anchored=anchored, curv_probes=curv_probes,
+        )
+        if parametrization not in ("bloch", "kraus"):
+            raise ValueError(
+                "parametrization must be 'bloch' (projected chains) or "
+                "'kraus' (smooth exactly-CPTP factor chains)"
+            )
+
+    def _design_arrays(self):
+        """(input blochs B, weighted POVM rows W, flattened counts) as
+        float64 numpy."""
+        tmg = self.tmg
+        t0 = tmg.tomographs[0]
+        povm = np.asarray(t0.povm_matrix, dtype=np.float64)
+        n_meas = np.asarray(t0.n_measurements, dtype=np.float64)
+        # state_core.weighted_povm_flat on the host
+        w = (povm * (n_meas / n_meas.sum())[:, None, None]).reshape(-1, povm.shape[-1])
+        flat = np.concatenate([t.flat_results for t in tmg.tomographs])
+        return np.asarray(tmg._input_blochs_t(), np.float64), w, flat
+
+    def _kraus_target(self, x_init, scale):
+        """The kraus chain's target and start (see the class docstring)."""
+        tmg = self.tmg
+        d_choi = 4**tmg.channel.n_qubits
+        b_np, w_np, flat_np = self._design_arrays()
+        b_dev, w_dev, flat_dev = (tmg._tensor(a) for a in (b_np, w_np, flat_np))
+        self._decode_kraus = d_choi
+        self._kraus_whiten = self._kraus_anchor = self._kraus_uscale = None
+        y0 = process_core.np_kraus_param_from_choi_bloch(x_init)
+        a_l_np = a_r_np = None
+        if self.precondition:
+            a_l, a_r, a_l_inv, a_r_inv = process_core.kraus_design_whitener(
+                b_np, w_np, flat_np, x_init
+            )
+            z0 = a_l_inv @ (y0[0] + 1j * y0[1]) @ a_r_inv
+            # unit-rms coordinates: the Gram factors carry the raw count
+            # scale, which leaves z0 where float32 cannot resolve
+            # posterior-sized moves
+            s_norm = float(np.sqrt(np.mean(np.abs(z0) ** 2)))
+            if s_norm > 0:
+                a_l = a_l * s_norm
+                z0 = z0 / s_norm
+            y0 = np.stack([z0.real, z0.imag], axis=0)
+            a_l_np, a_r_np = a_l, a_r
+            whiten = tuple(process_core._complex_like(a, b_dev) for a in (a_l, a_r))
+            self._kraus_whiten = whiten
+
+            def decode(zf):
+                return process_core.kraus_param_to_choi_bloch_whitened(
+                    zf.reshape(tuple(zf.shape[:-1]) + (2, d_choi, d_choi)), *whiten
+                )
+        else:
+
+            def decode(zf):
+                return process_core.kraus_param_to_choi_bloch(
+                    zf.reshape(tuple(zf.shape[:-1]) + (2, d_choi, d_choi))
+                )
+
+        seek = 500 if self.mode_seek is None else int(self.mode_seek)
+        if not self.anchored:
+            x_ref_dev = tmg._tensor(x_init)
+            # p_ref with the chain's own dtype and forward, so p = p_ref + dp
+            p_ref = d_choi * (b_dev @ x_ref_dev.reshape(d_choi, d_choi) @ w_dev.T).reshape(-1)
+
+            def target(yf):
+                return -scale * process_core.process_nll_factored_rel(
+                    decode(yf), b_dev, w_dev, flat_dev, x_ref_dev, p_ref
+                )
+
+            x_init = y0.reshape(-1)
+            if seek > 0:
+                rms0 = float(np.sqrt(np.mean(x_init**2))) or 1.0
+                x_init = maximize_logpdf(target, tmg._tensor(x_init), seek, lr=3e-3 * rms0)
+            return target, x_init
+
+        counts64 = torch.as_tensor(flat_np, dtype=torch.float64, device=tmg.device)
+
+        def make_anchor(z_ref_c):
+            pack, x_ref_b = process_core.np_kraus_anchor_pack(z_ref_c, a_l_np, a_r_np)
+            pack_t = process_core.anchor_pack_to(pack, b_dev)
+            p_ref = torch.as_tensor(
+                d_choi * (b_np @ x_ref_b.reshape(d_choi, d_choi) @ w_np.T).reshape(-1),
+                dtype=torch.float64, device=tmg.device,
+            )
+
+            def anchored_target(dzf):
+                return -scale * process_core.process_nll_anchored(
+                    dzf, b_dev, w_dev, counts64, pack_t, p_ref
+                )
+
+            return pack, x_ref_b, anchored_target
+
+        z_ref = y0[0] + 1j * y0[1]
+        pack, x_ref_b, target = make_anchor(z_ref)
+        rms_ref = float(np.sqrt(np.mean(y0**2))) or 1.0
+        x_init = np.zeros(2 * d_choi * d_choi)
+        if seek > 0:
+            dz = maximize_logpdf(target, tmg._tensor(x_init), seek, lr=3e-3 * rms_ref)
+            dz = dz.cpu().numpy().astype(np.float64).reshape(2, d_choi, d_choi)
+            pack, x_ref_b, target = make_anchor(z_ref + dz[0] + 1j * dz[1])
+        self._kraus_anchor = (pack, x_ref_b)
+        if self.curv_probes:
+            h_diag = _hutchinson_diagonal(
+                target, x_init.shape[0], int(self.curv_probes), tmg.dtype, tmg.device
+            ).cpu().numpy().astype(np.float64)
+            pos = h_diag[h_diag > 0]
+            med = float(np.median(pos)) if pos.size else 1.0
+            # Hutchinson noise leaves some entries near 0 or negative (and
+            # the gauge directions M -> M U carry no curvature): cap the
+            # scale at 100x the median direction's
+            s_u = 1.0 / np.sqrt(np.clip(h_diag, 1e-4 * med, None))
+            s_dev = tmg._tensor(s_u)
+            anchored_target = target
+
+            def target(uf):
+                return anchored_target(uf * s_dev)
+
+            self._kraus_uscale = s_u
+        return target, x_init
+
+    def _projected_target(self, x_init, scale):
+        """The 4+ qubit 'bloch' target exp(-NLL(P(y))) and its start (see
+        the class docstring)."""
+        tmg = self.tmg
+        cptp_tol = process_core.default_cptp_tol(1e-12, tmg.dtype)
+
+        def proj(y):
+            return process_core.cptp_project_bloch_host(
+                y, 100, cptp_tol, chunk=PROJECTION_READ_EVERY, cp="ns"
+            )
+
+        self._proj = proj
+        b_np, w_np, flat_np = self._design_arrays()
+        unwhiten = None
+        if self.precondition:
+            a_b, a_w, l_b, l_w = process_core.kron_fisher_whitener(b_np, w_np, flat_np, x_init)
+            d1 = a_b.shape[0]
+            a_b_dev, a_w_t_dev = tmg._tensor(a_b), tmg._tensor(a_w.T)
+
+            def unwhiten(z):
+                zm = z.reshape(tuple(z.shape[:-1]) + (d1, d1))
+                return (a_b_dev @ zm @ a_w_t_dev).reshape(z.shape)
+
+            def to_x(zs):
+                z3 = np.asarray(zs, np.float64).reshape(-1, d1, d1)
+                return (a_b @ (z3 @ a_w.T)).reshape(z3.shape[0], -1)
+
+            self._to_x = to_x
+            x_init = (l_b.T @ x_init.reshape(d1, d1) @ l_w).reshape(-1)
+        coords = unwhiten or (lambda y: y)
+        if self.proposal == "mala":
+            # the drift and the log-density take the same differentiable
+            # projection, so the chain is exact for its target
+
+            def target(z):
+                return -scale * tmg._nll(process_core.cptp_project_bloch_diff(coords(z), 100))
+        else:
+
+            def target(z):
+                return -scale * tmg._nll(proj(coords(z)))
+
+            if not self.precondition and self.jump_distr is None:
+                # the legacy diagonal Fisher proposal: per-axis scales
+                # ~ 1/sqrt(diag(A^T A)), diag(A^T A) = 16^n colsq(B) (x)
+                # colsq(W); fixed scales, so still symmetric
+                fisher_diag = np.kron(np.sum(b_np**2, axis=0), np.sum(w_np**2, axis=0))
+                scales = 1.0 / np.sqrt(fisher_diag + 1e-6 * fisher_diag.max())
+                scales_dev = tmg._tensor(scales / np.median(scales))
+
+                def diagonal_jump(gen, shape, dtype, device):
+                    normal = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+                    return normal * scales_dev
+
+                self.jump_distr = diagonal_jump
+        return target, x_init
+
+    def _build_chain(self):
+        tmg = self.tmg
+        big = tmg.channel.n_qubits >= self.PROJECTED_TARGET_QUBITS
+        self._to_x = self._decode_kraus = self._proj = None
+        x_init = np.asarray(self.channel.choi.bloch, dtype=np.float64)
+        scale = (
+            1.0 / float(sum(np.sum(t.n_measurements) for t in tmg.tomographs))
+            if self.temper
+            else 1.0
+        )
+        update_rule = basic_update
+        if self.parametrization == "kraus":
+            target, x_init = self._kraus_target(x_init, scale)
+        elif big:
+            target, x_init = self._projected_target(x_init, scale)
+        else:
+            if self.proposal == "mala":
+                raise NotImplementedError(
+                    "proposal='mala' is the projected-target mode "
+                    f"(>= {self.PROJECTED_TARGET_QUBITS} qubits)"
+                )
+
+            def target(y):
+                return -scale * tmg._nll(y)
+
+            update_rule = functools.partial(tmg._cptp_update_rule, chunk=PROJECTION_READ_EVERY)
+        # non-anchored float32 kraus targets carry O(1) evaluation noise:
+        # the current state's log-density is evaluated afresh every step
+        refresh = (
+            self.parametrization == "kraus" and not self.anchored
+            and tmg.dtype == torch.float32
+        )
+        self.chain = MHMC(
+            target,
+            jump_distr=self.jump_distr,
+            step=self.step,
+            burn_steps=self.burn_steps,
+            dim=int(x_init.shape[-1]),
+            update_rule=update_rule,
+            symmetric=self.jump_logpdf is None,
+            jump_logpdf=self.jump_logpdf,
+            x_init=tmg._tensor(x_init),
+            key=self.key,
+            drift_fn=autograd_drift(target) if self.proposal == "mala" else None,
+            refresh_logp=refresh,
+        )
+        if self.adapt_step:
+            # windows around the 25% random-walk optimum and MALA's 57%
+            if self.proposal == "mala":
+                bounds = (0.4, 0.7)
+            elif big or self.parametrization == "kraus":
+                bounds = (0.15, 0.4)
+            else:
+                bounds = (0.05, 0.5)
+            self.chain.adapt_step(segment=100, max_rounds=24, confirm=2, bounds=bounds)
+
+    def _decode(self, samples):
+        """Choi bloch vectors (float64 numpy) of the chain's samples."""
+        tmg = self.tmg
+        if self._decode_kraus:
+            d_choi = self._decode_kraus
+            ys = np.asarray(samples, dtype=np.float64)
+            if self._kraus_uscale is not None:
+                ys = ys * self._kraus_uscale  # the chain runs in u = dz / s
+            ys = ys.reshape(-1, 2, d_choi, d_choi)
+            if self._kraus_anchor is not None:
+                pack, x_ref = self._kraus_anchor
+
+                def decode(zz):
+                    return x_ref + process_core.kraus_delta_choi_bloch(
+                        tmg._tensor(zz), pack).cpu().numpy().astype(np.float64)
+            elif self._kraus_whiten is not None:
+
+                def decode(zz):
+                    return process_core.kraus_param_to_choi_bloch_whitened(
+                        tmg._tensor(zz), *self._kraus_whiten).cpu().numpy().astype(np.float64)
+            else:
+
+                def decode(zz):
+                    return process_core.kraus_param_to_choi_bloch(
+                        tmg._tensor(zz)).cpu().numpy().astype(np.float64)
+
+            chunk = max(1, (1 << 24) // (d_choi * d_choi))
+            samples = np.concatenate(
+                [decode(ys[lo : lo + chunk]) for lo in range(0, ys.shape[0], chunk)]
+            )
+        if self._to_x is not None:
+            samples = self._to_x(samples)  # whitened z back to Choi bloch
+        if self._proj is not None:
+            # projected-likelihood samples are reported as their projections
+            samples = process_core.cptp_project_bloch_host(
+                tmg._tensor(samples), max_iter=100, chunk=25, cp="ns"
+            ).cpu().numpy().astype(np.float64)
+        return np.asarray(samples, dtype=np.float64)
+
+    def setup(self):
+        if self.mode == Mode.STATE:
+            raise NotImplementedError("This interval works only for process tomography")
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH_MESSAGE)
+        tmg = self.tmg
+        if not self.use_new_estimate:
+            self.channel = tmg.reconstructed_channel
+        elif self.channel is None:
+            self.channel = tmg.point_estimate(
+                self.method,
+                states_est_method=self.states_est_method,
+                states_physical=self.states_physical,
+                states_init=self.states_init,
+            )
+        if not (self.warm_start and hasattr(self, "chain")):
+            self._build_chain()
+        samples, self.acceptance_rate, chain_shape = _draw_chains(
+            self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
+        )
+        samples = self._decode(samples)
+        n2 = 2 * tmg.channel.n_qubits
+        dst_name = _DST_NAMES.get(tmg.dst)
+        if dst_name is not None:
+            dist = bootstrap_core._distance_batch(
+                dst_name, tmg._tensor(samples), tmg._tensor(self.channel.choi.bloch), n2
+            ).cpu().numpy()
+        else:
+            dist = [tmg.dst(Qobj(m), self.channel.choi)
+                    for m in np_bloch_to_matrix(samples, n2)]
+        dist = _finite_distances(dist, type(self).__name__)
+        per_chain_dist = dist.reshape(chain_shape)
+        self.r_hat = split_rhat(per_chain_dist)
+        self.ess = effective_sample_size(per_chain_dist)
+        _warn_if_nonconverged(type(self).__name__, self.r_hat, self.ess)
+        dist = np.sort(dist)
+        conf_levels = np.linspace(0, 1, len(dist))
+        self.cl_to_dist = _interp1d(conf_levels, dist)
+        if self.return_samples:
+            return dist, conf_levels, self.acceptance_rate, list(np_bloch_to_matrix(samples, n2))
+
+
+# --------------------------------------------------------------------------
 # Holder composition interval
 # --------------------------------------------------------------------------
 
@@ -763,9 +1353,10 @@ class HolderInterval(ConfidenceInterval):
     """Process CI composed from per-input-state intervals by a Holder-type
     bound.
 
-    `kind` selects the per-state interval family: 'moment', 'sugiyama' or
-    'bootstrap' (alias 'boot'). 'mhmc' waits for the MHMC intervals
-    (ROADMAP A14); 'wang', which the reference advertises but never
+    `kind` selects the per-state interval family: 'moment', 'mhmc',
+    'sugiyama' or 'bootstrap' (alias 'boot'); `step`, `burn_steps` and
+    `thinning` go to the 'mhmc' children, which sample around their own
+    'mle' estimates. 'wang', which the reference advertises but never
     implemented, is rejected.
     """
 
@@ -780,10 +1371,14 @@ class HolderInterval(ConfidenceInterval):
         init: str = "lin",
         tol: float = 1e-3,
         max_iter: int = 100,
+        step: float = 0.01,
+        burn_steps: int = 1000,
+        thinning: int = 1,
     ):
         super().__init__(
             tmg, n_points=n_points, kind=kind, max_confidence=max_confidence,
             method=method, physical=physical, init=init, tol=tol, max_iter=max_iter,
+            step=step, burn_steps=burn_steps, thinning=thinning,
         )
 
     def __call__(self, conf_levels=None):
@@ -808,10 +1403,18 @@ class HolderInterval(ConfidenceInterval):
         if kind == "moment":
             self.intervals = [MomentInterval(t) for t in tomographs]
         elif kind == "mhmc":
-            raise NotImplementedError(
-                "HolderInterval(kind='mhmc') needs the MHMC intervals, which are "
-                "not ported yet (ROADMAP A14)"
-            )
+            if any(t.povm_matrix is None for t in tomographs):
+                raise NotImplementedError(
+                    "kind='mhmc' needs dense per-state POVMs; use "
+                    "kind='moment'/'sugiyama'/'bootstrap' for kron-mode child tomographs"
+                )
+            self.intervals = [
+                MHMCStateInterval(
+                    t, self.n_points, self.step, self.burn_steps, self.thinning,
+                    use_new_estimate=True,
+                )
+                for t in tomographs
+            ]
         elif kind == "bootstrap":
             self.intervals = [
                 BootstrapStateInterval(

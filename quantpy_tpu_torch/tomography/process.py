@@ -26,7 +26,7 @@ from ..ops.geometry import resolve_distance
 from ..qobj import Qobj
 from ..routines import generate_single_entries
 from . import process_core, state_core
-from .state import StateTomograph, make_generator
+from .state import StateTomograph, bound_once, make_generator
 
 __all__ = ["ProcessTomograph"]
 
@@ -319,23 +319,36 @@ class ProcessTomograph:
         """Projection onto completely positive maps."""
         return self._projected(process_core.cp_project_bloch, channel, vectorized)
 
-    def _cptp_update_rule(self, x_t, delta, step):
+    def _cptp_update_rule(self, x_t, delta, step, chunk: int = 1):
         """The proposal of the likelihood-sampling intervals: the CPTP
         projection (100 Dykstra iterations) of x + step * delta, on Choi
-        bloch vectors; from 4 qubits up on the Newton-Schulz engine."""
+        bloch vectors; from 4 qubits up on the Newton-Schulz engine. The
+        stop criterion is read every `chunk` iterations (see
+        `process_core.cptp_project_bloch_host`)."""
         cp = "ns" if self.channel.n_qubits >= 4 else "eigh"
-        return self._cptp_projection_vec(
-            self._tensor(x_t) + step * self._tensor(delta), n_iter=100, cp=cp
+        return process_core.cptp_project_bloch_host(
+            self._tensor(x_t) + step * self._tensor(delta), 100, self._cptp_tol(1e-12),
+            chunk=chunk, cp=cp,
         )
+
+    def _nll_operands(self):
+        """The NLL's device operands (transposed input blochs, weighted POVM
+        rows, flattened counts), made once per experiment (see
+        `state.bound_once`)."""
+        t0 = self.tomographs[0]
+
+        def make():
+            w = state_core.weighted_povm_flat(
+                self._tensor(t0.povm_matrix), self._tensor(t0.n_measurements)
+            )
+            flat = np.concatenate([t.flat_results for t in self.tomographs])
+            return self._tensor(self._input_blochs_t()), w, self._tensor(flat)
+
+        arrays = (t0.povm_matrix, t0.n_measurements) + tuple(t._results for t in self.tomographs)
+        return bound_once(self, arrays, make)
 
     def _nll(self, choi_bloch):
         """Process NLL of Choi bloch vectors under the current data, through
         the factored product."""
-        t0 = self.tomographs[0]
-        w = state_core.weighted_povm_flat(
-            self._tensor(t0.povm_matrix), self._tensor(t0.n_measurements)
-        )
-        flat = np.concatenate([t.flat_results for t in self.tomographs])
-        return process_core.process_nll_factored(
-            self._tensor(choi_bloch), self._tensor(self._input_blochs_t()), w, self._tensor(flat)
-        )
+        b, w, flat = self._nll_operands()
+        return process_core.process_nll_factored(self._tensor(choi_bloch), b, w, flat)

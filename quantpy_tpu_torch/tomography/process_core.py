@@ -1,6 +1,5 @@
 """Functional core of quantum process tomography (port of
-quantpy_tpu/tomography/process_core.py, without its Kraus parametrization
-and anchored likelihoods, which only the MHMC intervals use).
+quantpy_tpu/tomography/process_core.py).
 
 Everything runs in the Choi bloch representation: the Choi matrix of an
 n-qubit channel is a Hermitian operator on 2n qubits, hence a real vector
@@ -31,7 +30,13 @@ import numpy as np
 import torch
 
 from ..config import as_real, complex_dtype, rdtype
-from ..ops.paulis import bloch_to_matrix, matrix_to_bloch, pauli_transpose_signs
+from ..ops.paulis import (
+    bloch_to_matrix,
+    matrix_to_bloch,
+    np_bloch_to_matrix,
+    np_matrix_to_bloch,
+    pauli_transpose_signs,
+)
 from . import state_core
 
 __all__ = [
@@ -57,6 +62,16 @@ __all__ = [
     "estimate_pgdb_factored",
     "dys_factored_chunk",
     "estimate_dys_factored",
+    "cptp_project_bloch_diff",
+    "kraus_param_to_choi_bloch",
+    "kraus_param_to_choi_bloch_whitened",
+    "kraus_design_whitener",
+    "np_kraus_param_from_choi_bloch",
+    "np_kraus_anchor_pack",
+    "kraus_delta_choi_bloch",
+    "process_nll_anchored",
+    "process_nll_factored_rel",
+    "kron_fisher_whitener",
 ]
 
 _CP_EPS = 1e-12  # eigenvalue floor of the CP projection, probability floor of the logs
@@ -713,3 +728,401 @@ def estimate_dys_factored(
     if big:
         return cptp_project_bloch_host(x_g, max_iter=200, cp="ns")
     return cptp_project_bloch(x_g, 200)
+
+
+# -- the likelihood-sampling (MHMC) part ---------------------------------------
+
+
+def _dykstra_step_diff(xm, pm, qm, ns_iter: int):
+    """One matrix-space Dykstra step with the Newton-Schulz CP projection."""
+    s = xm + pm
+    y = _tp_project_mat(s)
+    t = y + qm
+    xm_new = _ns_psd_mat(t, ns_iter)
+    return xm_new, s - y, t - xm_new
+
+
+class _RecomputedDykstraStep(torch.autograd.Function):
+    """`_dykstra_step_diff` whose backward pass recomputes the step from its
+    inputs instead of keeping the ns_iter sign iterations' products."""
+
+    @staticmethod
+    def forward(ctx, xm, pm, qm, ns_iter):
+        ctx.ns_iter = ns_iter
+        ctx.save_for_backward(xm, pm, qm)
+        return _dykstra_step_diff(xm, pm, qm, ns_iter)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outputs = _dykstra_step_diff(*inputs, ctx.ns_iter)
+        return (*torch.autograd.grad(outputs, inputs, grads), None)
+
+
+def cptp_project_bloch_diff(choi_bloch, n_steps: int = 100, ns_iter: int = 19):
+    """Fixed-length, reverse-differentiable CPTP projection: `n_steps`
+    matrix-space Dykstra iterations with the Newton-Schulz CP engine (the
+    'ns' branch of `cptp_project_bloch` without its stop criterion), so
+    that autograd flows through it. The MALA drift of the projected-
+    likelihood process target needs it. The backward pass recomputes each
+    Dykstra step from its inputs (the JAX package checkpoints the step)."""
+    x = as_real(choi_bloch)
+    n2 = 2 * _n_from_d2(x.shape[-1])
+    xm = bloch_to_matrix(x, n2)
+    pm = torch.zeros_like(xm)
+    qm = torch.zeros_like(xm)
+    for _ in range(int(n_steps)):
+        xm, pm, qm = _RecomputedDykstraStep.apply(xm, pm, qm, ns_iter)
+    return matrix_to_bloch(xm)
+
+
+def _mh(a):
+    return a.conj().transpose(-1, -2)
+
+
+def _trace_out(g, d_in: int):
+    """Tr_out of (..., D, D) matrices, D = d_in * d_out, input factor
+    first."""
+    d_out = g.shape[-1] // d_in
+    g4 = g.reshape(tuple(g.shape[:-2]) + (d_in, d_out, d_in, d_out))
+    return torch.diagonal(g4, dim1=-3, dim2=-1).sum(-1)
+
+
+def kraus_param_to_choi_bloch(y):
+    """Smooth, surjective, exactly TP parametrization of CPTP Choi
+    matrices, the projection-free route for MCMC over processes.
+
+    `y`: real (..., 2, D, D) re/im pair of a complex factor M, D = 4^n the
+    Choi dimension. With G = M M^H, rho = Tr_out G = L L^H (Cholesky, with a
+    relative 1e-9 ridge), the Choi matrix is
+
+        X = (L^{-1} (x) I_out) G (L^{-H} (x) I_out),
+
+    so Tr_out X = I exactly and X is PSD. Returns real Choi bloch vectors
+    (..., D^2); differentiable by autograd."""
+    y = as_real(y)
+    return _kraus_m_to_choi_bloch(torch.complex(y[..., 0, :, :], y[..., 1, :, :]))
+
+
+def _cholesky(a):
+    """Lower Cholesky factors of a batch, without a host read: a factor
+    whose factorization failed is NaN, so a target built on it is NaN and a
+    chain rejects the proposal, as the JAX package's NaN factor does."""
+    l_chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info != 0)[..., None, None], torch.full_like(l_chol, math.nan), l_chol)
+
+
+def _kraus_m_to_choi_bloch(m):
+    """Complex-matrix core of :func:`kraus_param_to_choi_bloch`."""
+    d = m.shape[-1]
+    d_in = int(round(math.sqrt(d)))
+    g = m @ _mh(m)
+    rho = _trace_out(g, d_in)
+    tr = torch.diagonal(rho, dim1=-2, dim2=-1).sum(-1).real
+    eye = torch.eye(d_in, dtype=rho.dtype, device=rho.device)
+    lam = (1e-9 * tr / d_in + 1e-30).to(rho.dtype)
+    l_chol = _cholesky(rho + lam[..., None, None] * eye)
+    m_rows = m.reshape(tuple(m.shape[:-2]) + (d_in, d_in * d))
+    n_mat = torch.linalg.solve_triangular(l_chol, m_rows, upper=False).reshape(m.shape)
+    return matrix_to_bloch(n_mat @ _mh(n_mat))
+
+
+def _complex_like(a, like):
+    """`a` (array or tensor) as a complex tensor of `like`'s precision on
+    its device; a tensor already there is returned as it is."""
+    return torch.as_tensor(a, dtype=complex_dtype(like.dtype), device=like.device)
+
+
+def kraus_param_to_choi_bloch_whitened(z, a_l, a_r):
+    """Whitened-coordinate kraus decode: M = A_L Z A_R, then the kraus map.
+    `z`: real (..., 2, D, D) re/im chain state; `a_l`, `a_r`: the complex
+    whitening matrices of :func:`kraus_design_whitener` (arrays or
+    tensors)."""
+    z = as_real(z)
+    m0 = torch.complex(z[..., 0, :, :], z[..., 1, :, :])
+    return _kraus_m_to_choi_bloch(_complex_like(a_l, z) @ m0 @ _complex_like(a_r, z))
+
+
+def kraus_design_whitener(
+    input_blochs_t,
+    w_flat,
+    flat_counts,
+    choi_bloch_hat,
+    ridge: float = 1e-6,
+    x_floor: float = 1e-2,
+):
+    """M-space curvature whitener for kraus-parametrized process chains,
+    host float64.
+
+    The NLL's Gauss-Newton form in the factor M (X ~ M M^H, rows
+    p_k = Tr(A_k X), A_k = rho_s^T (x) E_o) is bounded by two structured
+    averages: on the left index the measured-operator Gram G_B (x) G_W with
+    G_B = sum_s u_s (rho_s^T)^2 and G_W = sum_o v_o E_o^2 (the rank-1 weight
+    fit c_k / p_k^2 ~ u_s v_o of :func:`kron_fisher_whitener`), and on the
+    right index the estimate X_hat, floored at `x_floor * tr(X)/D`.
+    Sampling Z with M = A_L Z A_R, A_L = (G_B (x) G_W)^{-1/2} and
+    A_R = (X_hat + eps I)^{-1/2}, runs the chain in about isotropic
+    curvature coordinates. Returns complex (a_l, a_r, a_l_inv, a_r_inv);
+    the start is z0 = a_l_inv M0 a_r_inv."""
+    b = np.asarray(input_blochs_t, dtype=np.float64)
+    w = np.asarray(w_flat, dtype=np.float64)
+    d1 = b.shape[-1]
+    n = int(round(math.log(d1, 4)))
+    c = np.asarray(flat_counts, dtype=np.float64).reshape(b.shape[0], -1)
+    x_hat = np.asarray(choi_bloch_hat, dtype=np.float64).reshape(d1, d1)
+    p_hat = d1 * (b @ x_hat @ w.T)
+    floor = 0.5 / max(float(c.sum(axis=-1).max()), 1.0)
+    p_hat = np.maximum(p_hat, floor)
+    r = c / (p_hat * p_hat)
+    total = float(r.sum())
+    u = r.sum(axis=1)
+    v = r.sum(axis=0) / max(total, 1e-30)
+    rho_mats = np_bloch_to_matrix(b, n)
+    e_mats = np_bloch_to_matrix(w, n)
+    g_b = np.einsum("s,sij,sjk->ik", u, rho_mats, rho_mats)
+    g_w = np.einsum("o,oij,ojk->ik", v, e_mats, e_mats)
+
+    def _sqrt_pair(g, lam):
+        evals, evecs = np.linalg.eigh(g)
+        evals = np.clip(evals, 0.0, None) + lam
+        inv_s = (evecs / np.sqrt(evals)) @ evecs.conj().T
+        s = (evecs * np.sqrt(evals)) @ evecs.conj().T
+        return inv_s, s
+
+    inv_b, sq_b = _sqrt_pair(g_b, ridge * np.trace(g_b).real / g_b.shape[0])
+    inv_w, sq_w = _sqrt_pair(g_w, ridge * np.trace(g_w).real / g_w.shape[0])
+    x_mat = np_bloch_to_matrix(choi_bloch_hat, 2 * n)
+    a_r, a_r_inv = _sqrt_pair(x_mat, x_floor * np.trace(x_mat).real / d1)
+    return np.kron(inv_b, inv_w), a_r, np.kron(sq_b, sq_w), a_r_inv
+
+
+def np_kraus_param_from_choi_bloch(choi_bloch):
+    """Host inverse of :func:`kraus_param_to_choi_bloch` at a CPTP point:
+    the Hermitian square root M = X^{1/2} (eigenvalues clipped at 0) as a
+    real (2, D, D) re/im pair. At a CPTP X, rho = Tr_out X = I, so the map
+    takes this M back to X."""
+    choi_bloch = np.asarray(choi_bloch, dtype=np.float64)
+    x = np_bloch_to_matrix(choi_bloch, 2 * _n_from_d2(choi_bloch.shape[-1]))
+    w, v = np.linalg.eigh(x)
+    w = np.sqrt(np.clip(w, 0.0, None))
+    m = (v * w[..., None, :]) @ np.swapaxes(v.conj(), -1, -2)
+    return np.stack([m.real, m.imag], axis=-3)
+
+
+def np_kraus_anchor_pack(z_ref, a_l=None, a_r=None):
+    """Host float64 anchor constants for the anchored exact-delta kraus
+    decode (:func:`kraus_delta_choi_bloch`).
+
+    The chain state is the offset dz = z - z_ref from the anchor, and the
+    decode writes every state-dependent quantity as an exact function of
+    dz, never as a difference of two full-size float32 results: the
+    rounding then scales with the posterior-sized |dX| instead of |X|. With
+    U0 = L_ref^{-1} (x) I and E' = (L^{-1} - L_ref^{-1}) (x) I:
+
+        dM    = A_L dz A_R
+        dG    = M_ref dM^H + dM M_ref^H + dM dM^H
+        A     = L_ref^{-1} (Tr_out dG + ridge delta) L_ref^{-H}
+        L     = L_ref (I + S),  S + S^H + S S^H = A
+        E     = -S (I + S)^{-1} L_ref^{-1}
+        dX    = U dG U^H + E' C_ref + (E' C_ref)^H + E' G_ref E'^H,
+                U = L^{-1} (x) I,  C_ref = G_ref (L_ref^{-H} (x) I)
+
+    At dz = 0 every term is exactly zero. `z_ref`: complex (D, D) whitened
+    anchor; `a_l`, `a_r`: the whitening matrices (None: identity).
+    Returns (pack, x_ref_bloch): `pack` a dict of complex128 arrays (bind it
+    to the chain's device and precision once with `anchor_pack_to`), and
+    the float64 anchor Choi bloch."""
+    z_ref = np.asarray(z_ref, dtype=np.complex128)
+    d = z_ref.shape[-1]
+    d_in = int(round(math.sqrt(d)))
+    eye = np.eye(d, dtype=np.complex128)
+    a_l = eye if a_l is None else np.asarray(a_l, dtype=np.complex128)
+    a_r = eye if a_r is None else np.asarray(a_r, dtype=np.complex128)
+    m_ref = a_l @ z_ref @ a_r
+    g_ref = m_ref @ m_ref.conj().T
+    rho = np.einsum("ibjb->ij", g_ref.reshape(d_in, d_in, d_in, d_in))
+    tr = float(np.trace(rho).real)
+    lam = 1e-9 * tr / d_in + 1e-30
+    l_ref = np.linalg.cholesky(rho + lam * np.eye(d_in))
+    l_ref_inv = np.linalg.solve(l_ref, np.eye(d_in))
+    t = (l_ref_inv @ g_ref.reshape(d_in, d_in * d)).reshape(d, d)
+    x_ref = (l_ref_inv @ t.conj().T.reshape(d_in, d_in * d)).reshape(d, d).conj().T
+    c_ref = (l_ref_inv @ g_ref.conj().T.reshape(d_in, d_in * d)).reshape(d, d).conj().T
+    pack = {
+        "a_l": a_l,
+        "a_r": a_r,
+        "m_ref": m_ref,
+        "g_ref": g_ref,
+        "c_ref": c_ref,
+        "l_ref_inv": l_ref_inv,
+        "z_ref": z_ref,
+    }
+    return pack, np_matrix_to_bloch(x_ref)
+
+
+def anchor_pack_to(pack, like):
+    """The anchor constants as complex tensors of `like`'s precision on its
+    device."""
+    return {k: _complex_like(v, like) for k, v in pack.items()}
+
+
+def _apply_left_factor(mat, y, d_in: int):
+    """(mat (x) I) y for y (..., D, D), mat (..., d_in, d_in),
+    D = d_in * d_out: mat acts on the first row-index factor (the Choi
+    input space)."""
+    d = y.shape[-1]
+    rows = y.reshape(tuple(y.shape[:-2]) + (d_in, (d // d_in) * d))
+    return (mat @ rows).reshape(y.shape)
+
+
+def kraus_delta_choi_bloch(dz_pair, pack, s_iters: int = 12):
+    """Anchored exact-delta decode: the Choi bloch offset dX from the anchor
+    of the whitened chain offset dz, X = X_ref + dX (see
+    :func:`np_kraus_anchor_pack` for the algebra).
+
+    `dz_pair`: real (..., 2, D, D) re/im pair of Z - Z_ref; `pack`: the
+    anchor constants (arrays, or tensors from `anchor_pack_to`). The
+    factor chol(I + A) - I is a fixed `s_iters`-step contraction
+    S <- Phi(A - S S^H) where max|A| < 0.25 (the posterior bulk), and the
+    direct Cholesky elsewhere; each branch runs on a zeroed stand-in where
+    it is not selected, so neither leaks NaN into the other or into its
+    gradient. Differentiable by autograd."""
+    dz_pair = as_real(dz_pair)
+    dz = torch.complex(dz_pair[..., 0, :, :], dz_pair[..., 1, :, :])
+    c = {k: _complex_like(v, dz_pair) for k, v in pack.items()}
+    l_ref_inv = c["l_ref_inv"]
+    d_in = l_ref_inv.shape[-1]
+    eye = torch.eye(d_in, dtype=dz.dtype, device=dz.device)
+
+    dm = c["a_l"] @ dz @ c["a_r"]
+    dmh = _mh(dm)
+    dg = c["m_ref"] @ dmh + dm @ _mh(c["m_ref"]) + dm @ dmh
+    drho = _trace_out(dg, d_in)
+    # the delta of the plain decode's ridge 1e-9 * tr(rho) / d_in
+    dtr = torch.diagonal(drho, dim1=-2, dim2=-1).sum(-1).real
+    drho = drho + (1e-9 * dtr / d_in).to(drho.dtype)[..., None, None] * eye
+    a = l_ref_inv @ drho @ _mh(l_ref_inv)
+
+    def phi(h):
+        return torch.tril(h, -1) + 0.5 * eye * h
+
+    small = a.abs().amax(dim=(-2, -1))[..., None, None] < 0.25
+    a_h = 0.5 * (a + _mh(a))
+    zeros = torch.zeros_like(a_h)
+    a_it = torch.where(small, a_h, zeros)
+    a_ch = torch.where(small, zeros, a_h)
+    s_it = phi(a_it)
+    for _ in range(int(s_iters)):
+        s_it = phi(a_it - s_it @ _mh(s_it))
+    s_ch = _cholesky(eye + a_ch) - eye
+    s = torch.where(small, s_it, s_ch)
+    # L^{-1} = (I + S)^{-1} L_ref^{-1};  E = -S (I + S)^{-1} L_ref^{-1}
+    l_inv = torch.linalg.solve_triangular(
+        eye + s, l_ref_inv.expand(s.shape), upper=False
+    )
+    e = -(s @ l_inv)
+    t1 = _apply_left_factor(l_inv, dg, d_in)
+    t1 = _mh(_apply_left_factor(l_inv, _mh(t1), d_in))
+    t2 = _apply_left_factor(e, c["c_ref"].expand(dz.shape), d_in)
+    t4 = _apply_left_factor(e, c["g_ref"].expand(dz.shape), d_in)
+    t4 = _mh(_apply_left_factor(e, _mh(t4), d_in))
+    return matrix_to_bloch(t1 + t2 + _mh(t2) + t4)
+
+
+def _rel_nll_from_dp(dp, unnorm_counts, p_ref):
+    """-sum n log1p(dp / p_ref), the shared reduction of the anchored and
+    relative NLLs, in float64 (the card's native double) whatever the
+    chain's dtype, returned in dp's dtype.
+
+    The JAX package runs it in double-float f32 arithmetic because the
+    TPU's f32 divide and log1p are a few ulp off and the count-weighted sum
+    amplifies that (+-3.6 at 4 qubits on the TPU); float64 carries ~1e-16 relative
+    per element. `unnorm_counts` and `p_ref` are best bound as float64
+    tensors on dp's device once (`torch.as_tensor` passes them through)."""
+    f64 = torch.float64
+    p = torch.as_tensor(p_ref, dtype=f64, device=dp.device).clamp(min=_CP_EPS)
+    n = torch.as_tensor(unnorm_counts, dtype=f64, device=dp.device)
+    ratio = (dp.to(f64) / p).clamp(min=-1.0 + 1e-7)
+    return (-(n * torch.log1p(ratio)).sum(-1)).to(dp.dtype)
+
+
+def _delta_probs(dm, b, w):
+    """dp = D1 * B dM W^T for (..., D1, D1) offsets, flattened (..., S*K)."""
+    dp = b.shape[-1] * (b @ dm @ w.T)
+    return dp.reshape(tuple(dm.shape[:-2]) + (-1,))
+
+
+def process_nll_anchored(dz_flat, input_blochs_t, w_flat, unnorm_counts, pack, p_ref,
+                         s_iters: int = 12):
+    """Anchored delta-form process NLL of the kraus chains, NLL(X(z)) -
+    NLL(X_ref), without ever forming the full-size X: dp = D B dX W^T runs
+    on the exact delta of :func:`kraus_delta_choi_bloch`. `dz_flat`:
+    (..., 2*D*D) flattened re/im offset Z - Z_ref; `p_ref`: the anchor's
+    probabilities (S*K,)."""
+    dz_flat = as_real(dz_flat)
+    b = as_real(input_blochs_t, like=dz_flat)
+    w = as_real(w_flat, like=dz_flat)
+    d1 = b.shape[-1]
+    d = int(round(math.sqrt(dz_flat.shape[-1] // 2)))
+    dbloch = kraus_delta_choi_bloch(
+        dz_flat.reshape(tuple(dz_flat.shape[:-1]) + (2, d, d)), pack, s_iters
+    )
+    dm = dbloch.reshape(tuple(dbloch.shape[:-1]) + (d1, d1))
+    return _rel_nll_from_dp(_delta_probs(dm, b, w), unnorm_counts, p_ref)
+
+
+def process_nll_factored_rel(choi_bloch, input_blochs_t, w_flat, unnorm_counts, x_ref_bloch,
+                             p_ref):
+    """Process NLL relative to an anchor, in delta form:
+    -sum n log1p(dp / p_ref) with dp = D B (X - X_ref) W^T. The same as
+    :func:`process_nll_factored` less a constant, so every acceptance
+    ratio is unchanged; the delta form keeps the float32 target's rounding
+    at the size of the offset. `p_ref` = D B X_ref W^T (S*K,)."""
+    choi_bloch = as_real(choi_bloch)
+    b = as_real(input_blochs_t, like=choi_bloch)
+    w = as_real(w_flat, like=choi_bloch)
+    d1 = b.shape[-1]
+    delta = choi_bloch - as_real(x_ref_bloch, like=choi_bloch)
+    dm = delta.reshape(tuple(delta.shape[:-1]) + (d1, d1))
+    return _rel_nll_from_dp(_delta_probs(dm, b, w), unnorm_counts, p_ref)
+
+
+def kron_fisher_whitener(input_blochs_t, w_flat, flat_counts, choi_bloch_hat,
+                         ridge: float = 1e-4):
+    """Kronecker-factored Gauss-Newton whitener of the process NLL at a
+    point estimate (K-FAC for the bilinear design), host float64.
+
+    p[s, k] = D1 (B X W^T)[s, k], so the Gauss-Newton matrix is
+    D1^2 sum r[s,k] (b_s b_s^T) (x) (w_k w_k^T) with r = c / p_hat^2; the
+    rank-1 fit r ~ u v / sum(r) makes it F_B (x) F_W with F_B = B^T diag(u) B
+    and F_W = W^T diag(v) W. Each factor gets a relative ridge
+    `ridge * tr(F) / D1` before its Cholesky F = L L^T. Returns
+    (a_b, a_w, l_b, l_w): the chain runs in z = (L_B^T (x) L_W^T) x and
+    maps back by x = (A_B (x) A_W) z with A = L^{-T}."""
+    from scipy.linalg import solve_triangular
+
+    b = np.asarray(input_blochs_t, dtype=np.float64)
+    w = np.asarray(w_flat, dtype=np.float64)
+    d1 = b.shape[-1]
+    c = np.asarray(flat_counts, dtype=np.float64).reshape(b.shape[0], -1)
+    x_hat = np.asarray(choi_bloch_hat, dtype=np.float64).reshape(d1, d1)
+    p_hat = d1 * (b @ x_hat @ w.T)
+    # floor at half a count of the busiest row: a boundary estimate
+    # (p_hat ~ 0 where c > 0) cannot blow up one weight
+    floor = 0.5 / max(float(c.sum(axis=-1).max()), 1.0)
+    p_hat = np.maximum(p_hat, floor)
+    r = c / (p_hat * p_hat)
+    total = float(r.sum())
+    if total <= 0.0:  # no counts: the identity metric
+        eye = np.eye(d1)
+        return eye, eye, eye, eye
+    u = r.sum(axis=1)
+    v = r.sum(axis=0) / total
+    out = []
+    for f in ((b * u[:, None]).T @ b, (w * v[:, None]).T @ w):
+        lam = ridge * float(np.trace(f)) / d1
+        l_f = np.linalg.cholesky(f + lam * np.eye(d1))
+        out.append((solve_triangular(l_f, np.eye(d1), lower=True).T, l_f))
+    (a_b, l_b), (a_w, l_w) = out
+    return a_b, a_w, l_b, l_w

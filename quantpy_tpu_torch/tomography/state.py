@@ -48,6 +48,18 @@ def make_generator(key, device) -> torch.Generator:
     return gen
 
 
+def bound_once(owner, arrays, make):
+    """`make()`, kept on `owner` while `arrays` are the same objects: a new
+    experiment or `results` replaces them (in-place edits of the arrays are
+    not seen)."""
+    cached = getattr(owner, "_bound", None)
+    if cached is None or len(cached[0]) != len(arrays) or any(
+        a is not b for a, b in zip(cached[0], arrays)
+    ):
+        owner._bound = cached = (arrays, make())
+    return cached[1]
+
+
 class StateTomograph:
     """Simulate state-tomography experiments and reconstruct states.
 
@@ -275,18 +287,30 @@ class StateTomograph:
             **kwargs,
         )
 
+    def _nll_operands(self):
+        """The NLL's device operands (frequencies, and the weighted POVM or
+        the kron block), made once per experiment (see `bound_once`): a
+        chain evaluates the NLL thousands of times."""
+
+        def make():
+            freq = self._tensor(self.flat_results / self.flat_results.sum())
+            if self.kron_mode:
+                return freq, self._tensor(self.povm_kron)
+            return freq, state_core.weighted_povm_flat(
+                self._tensor(self.povm_matrix), self._tensor(self.n_measurements)
+            )
+
+        return bound_once(
+            self, (self._results, self.povm_matrix, self.povm_kron, self.n_measurements), make
+        )
+
     def _nll(self, tril_vec):
         """NLL of Cholesky parameter vectors (..., 4^n) under the current
         data. In kron mode the probabilities run through the factored
         forward chain (uniform row weights 1/m)."""
-        freq = self._tensor(self.flat_results / self.flat_results.sum())
+        freq, design = self._nll_operands()
         tril_vec = self._tensor(tril_vec)
         n = self.state.n_qubits
         if self.kron_mode:
-            return kron_core.kron_nll_tril(
-                tril_vec, self._tensor(self.povm_kron), n, freq, self._results.shape[0]
-            )
-        a = state_core.weighted_povm_flat(
-            self._tensor(self.povm_matrix), self._tensor(self.n_measurements)
-        )
-        return state_core.nll_tril(tril_vec, a, freq, n)
+            return kron_core.kron_nll_tril(tril_vec, design, n, freq, self._results.shape[0])
+        return state_core.nll_tril(tril_vec, design, freq, n)

@@ -1,7 +1,7 @@
 """The RrhoR kernels on the card against their plain versions, and the
 paths without a kernel (Cholesky MLE, kron chains, process tomography, the
-analytic intervals' moments, linear programs and coverage harness) on the
-card against the CPU.
+analytic intervals' moments, linear programs and coverage harness, the MCMC
+chains' targets, drifts and steps) on the card against the CPU.
 
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
@@ -431,3 +431,120 @@ def test_analytic_intervals_default_to_the_card(cuda):
     poly = qtt.PolytopeProcessInterval(tmg, n_points=10)
     (lo, hi), _ = poly([0.5, 0.9])
     assert (lo <= hi + 1e-6).all() and max(poly.lp_iterations) <= poly.LP_ITERS
+
+
+def _mcmc_twins(device):
+    """A 1-qubit state and a 1-qubit process tomograph in float64 on
+    `device`, with the same counts and estimates on every device."""
+    st = qtt.StateTomograph(qtt.GHZ(1), key=71, device="cpu", dtype=torch.float64)
+    st.experiment(2000, "proj-set")
+    st.point_estimate("lin")
+    pt = qtt.ProcessTomograph(qtt.depolarizing(0.1, 1), key=72, device="cpu",
+                              dtype=torch.float64)
+    pt.experiment(2000)
+    pt.point_estimate("lifp")
+    from quantpy_tpu_torch import interop
+
+    state = interop.tomograph_from_arrays(**interop.to_numpy(st), device=device,
+                                          dtype=torch.float64)
+    state.reconstructed_state = st.reconstructed_state
+    process = interop.process_tomograph_from_arrays(**interop.to_numpy(pt), device=device,
+                                                    dtype=torch.float64)
+    process.reconstructed_channel = pt.reconstructed_channel
+    return state, process
+
+
+def _mcmc_targets(device):
+    import numpy as np
+
+    from quantpy_tpu_torch.ops.cholesky import np_matrix_to_real_tril_vec
+
+    state, process = _mcmc_twins(device)
+    mat = state.reconstructed_state.matrix + 1e-7 * np.eye(2)
+    choi = process.reconstructed_channel.choi.bloch
+    kraus = qtt.MHMCProcessInterval(process, parametrization="kraus", mode_seek=0,
+                                    curv_probes=0)
+    projected = qtt.MHMCProcessInterval(process, proposal="mala", mode_seek=0)
+    return {
+        "state": (lambda x: -2000.0 * state._nll(x),
+                  np_matrix_to_real_tril_vec(mat / np.trace(mat).real)),
+        "bloch": (lambda y: -process._nll(y), choi),
+        "kraus": kraus._kraus_target(choi, 1.0),
+        "projected": projected._projected_target(choi, 1.0),
+    }
+
+
+@pytest.mark.parametrize("name", ["state", "bloch", "kraus", "projected"])
+def test_mcmc_targets_and_drifts_on_the_card_match_the_cpu(cuda, name):
+    import numpy as np
+
+    from quantpy_tpu_torch import mhmc
+
+    (target, start), (cpu_target, _) = _mcmc_targets(cuda)[name], _mcmc_targets("cpu")[name]
+    start = np.asarray(torch.as_tensor(start).cpu(), dtype=np.float64)
+    xs = start + 1e-3 * np.random.default_rng(73).normal(size=(3,) + start.shape)
+    value, drift = mhmc._value_and_grad(target, torch.as_tensor(xs, device=cuda))
+    cpu_value, cpu_drift = mhmc._value_and_grad(cpu_target, torch.as_tensor(xs))
+    assert value.device.type == "cuda"
+    for a, b in ((value, cpu_value), (drift, cpu_drift)):
+        assert float((a.cpu() - b).abs().max()) <= TOL[torch.float64] * (1 + float(b.abs().max()))
+
+
+@pytest.mark.parametrize("mala", [False, True])
+def test_mcmc_steps_on_the_card_match_the_cpu(cuda, mala):
+    """30 MH steps of the state target, or 30 MALA steps of the anchored
+    kraus target, from one set of draws: the same states and acceptances."""
+    import numpy as np
+
+    from quantpy_tpu_torch import mhmc
+
+    name, step = ("kraus", 6e-3) if mala else ("state", 0.02)
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        target, start = _mcmc_targets(device)[name]
+        x = torch.as_tensor(np.asarray(torch.as_tensor(start).cpu()), device=device)
+        rng = np.random.default_rng(74)
+        drift_fn = mhmc.autograd_drift(target)
+        logp, drift = mhmc._value_and_drift(target, drift_fn, x)
+        states, accepted = [], 0
+        for _ in range(30):
+            delta = torch.as_tensor(rng.normal(size=tuple(x.shape)), device=device)
+            log_u = torch.log(torch.as_tensor(rng.uniform(), device=device))
+            if mala:
+                x, logp, drift, acc = mhmc.mala_step(x, logp, drift, delta, log_u, target,
+                                                     drift_fn, step)
+            else:
+                x, logp, acc = mhmc.mh_step(x, logp, delta, log_u, target,
+                                            mhmc.normalized_update, step)
+            states.append(x.cpu())
+            accepted += int(acc)
+        runs.append((torch.stack(states), accepted))
+    assert runs[0][1] == runs[1][1] and 0 < runs[0][1] < 30
+    assert float((runs[0][0] - runs[1][0]).abs().max()) <= TOL[torch.float64]
+
+
+def test_mcmc_intervals_default_to_the_card(cuda):
+    """Built without device=, the MCMC intervals' chains and their outputs
+    live on the card, in float32, and launch no RrhoR kernel."""
+    import numpy as np
+
+    tmg = qtt.StateTomograph(qtt.GHZ(2), key=75)
+    tmg.experiment(2000, "proj-set")
+    tmg.point_estimate("lin")
+    before = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    iv = qtt.MHMCStateInterval(tmg, n_points=40, burn_steps=20, n_chains=2)
+    dist, _ = iv([0.5, 0.9])
+    assert iv.chain.x_t.device.type == "cuda" and iv.chain.x_t.dtype == torch.float32
+    assert np.all(np.isfinite(dist))
+    ptmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 1), key=76)
+    ptmg.experiment(2000)
+    ptmg.point_estimate("lifp")
+    piv = qtt.MHMCProcessInterval(ptmg, n_points=20, burn_steps=10, parametrization="kraus",
+                                  proposal="mala", mode_seek=20, curv_probes=4,
+                                  return_samples=True)
+    dist, _, _, mats = piv.setup()
+    assert piv.chain.x_t.device.type == "cuda" and np.all(np.isfinite(dist))
+    assert qtt.Channel(qtt.Qobj(mats[-1])).is_cptp(atol=1e-5, verbose=False)
+    rho, radius, _ = qtt.bayesian_mean_estimate(tmg, n_samples=20, n_chains=2, burn_steps=20)
+    assert rho.is_density_matrix(verbose=False) and np.isfinite(radius)
+    assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == before

@@ -271,8 +271,10 @@ def test_intervals_reject_the_wrong_mode(jax_state, jax_process):
             iv.setup()
     with pytest.raises(ValueError):
         qtt.HolderInterval(process, kind="wang")()
-    with pytest.raises(NotImplementedError, match="A14"):
-        qtt.HolderInterval(process, kind="mhmc")()
+    # kind='mhmc' runs since the MHMC intervals are ported
+    dist, _ = qtt.HolderInterval(process, kind="mhmc", n_points=50, burn_steps=50)(
+        np.array([0.5, 0.9]))
+    assert dist.shape == (2,) and np.all(np.isfinite(dist)) and np.all(dist >= 0)
 
 
 def test_kron_intervals_reject_nonuniform_counts(jax_state_kron):

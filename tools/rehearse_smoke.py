@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6, 7, 8 and 9 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6, 7, 8, 9 and 10 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 6789] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 678910] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -10,7 +10,9 @@ bootstraps to 2 qubits x 32 resamples and 1 qubit x 8 resamples (with no
 launch expected of method='states': the CPU has no kernel), and phase 9's
 rows to 2 qubits (the kron row to GHZ(3), put in kron mode by lowering
 `StateTomograph.DENSE_POVM_MAX_ELEMENTS`), with few polytope margins and
-small coverage runs. What it prints are
+small coverage runs, and phase 10's rows to 1-2 qubits and a few dozen
+steps (its GHZ-4 and 4-qubit experiments become GHZ(2) and a 2-qubit
+channel). What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -46,7 +48,7 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="6789", help="which of phases 6-9 to run")
+    parser.add_argument("--phases", default="678910", help="which of phases 6-10 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -70,6 +72,15 @@ def main() -> int:
     chip_smoke._lp_device_split = lambda *_: None
     chip_smoke.COVERAGE_QST = (2, 500, 300)
     chip_smoke.COVERAGE_QPT = (1, 500, 200)
+    chip_smoke.MCMC_STATE = (80, 50, 2)
+    chip_smoke.MCMC_PROCESS = (1, 2_000, 40, 50, 2, 2)
+    chip_smoke.MCMC_AUDIT_PROCESS = dict(chip_smoke.MCMC_AUDIT_PROCESS, mode_seek=2)
+    chip_smoke.MCMC_BOOT_POINTS = 20
+    chip_smoke.MCMC_FOUR = (20, 10, 10)
+    chip_smoke.MCMC_PROJECTED_STEPS = 4
+    chip_smoke.MCMC_HOLDER = (20, 20)
+    chip_smoke.MCMC_IDLE_STEPS = 3
+    qtt.MHMCProcessInterval.PROJECTED_TARGET_QUBITS = 2  # the projected row at 2 qubits
     qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000  # 2 qubits dense, 3 in kron mode
     torch.cuda.Event = _HostEvent
     torch.cuda.synchronize = lambda *_: None
@@ -87,23 +98,34 @@ def main() -> int:
 
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
-    if "6" in args.phases:
+    phases = args.phases.replace("10", "X")
+    if "6" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase6_cholesky_mle(card)
         print(f"phase 6: {time.perf_counter() - t0:.1f} s on the CPU; "
               f"L-BFGS evaluations {evaluations}")
-    if "7" in args.phases:
+    if "7" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase7_kron(card)
         print(f"phase 7: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "8" in args.phases:
+    if "8" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase8_process(card)
         print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "9" in args.phases:
+    if "9" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase9_intervals(card)
         print(f"phase 9: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "X" in phases:
+        t0 = time.perf_counter()
+        tmg = qtt.StateTomograph(qtt.GHZ(2), key=2026)
+        tmg.experiment(chip_smoke.N_SHOTS, "proj-set")
+        est = tmg.point_estimate("mle-rhor")
+        tmg4 = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=7)
+        tmg4.experiment(2_000)
+        tmg4.point_estimate("lifp")
+        chip_smoke.phase10_mcmc(card, tmg, est, tmg4)
+        print(f"phase 10: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

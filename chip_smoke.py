@@ -89,6 +89,27 @@ non-zero exit code, and nothing falls back to the CPU:
    (g) the calibration harness with interval='mhmc'. Each row prints its
    time, steps per second, acceptance, R-hat, ESS, radii and peak memory,
    and the idle share of a span of its chain.
+11. The user entry points on the card (rhor_mle through the f32 bootstrap
+   batches, never rhor_mle_flat): (a) the state CLI
+   (`quantpy_tpu_torch.cli.state_interval.main`) on phase 3's GHZ-4
+   experiment written as a JSON record, --method mle-rhor with the
+   16,384-resample bootstrap (one rhor_mle launch), the moment, Sugiyama
+   and 500-margin polytope intervals, and `python -m
+   quantpy_tpu_torch.cli.state_interval --no-ci` in a process of its own;
+   (b) a GHZ-6 kron-mode record (moment, 256-resample bootstrap); (c) the
+   process CLI on phase 8's 4-qubit experiment (lifp; moment, 256-resample
+   bootstrap); each invocation with its host time (parse, validation,
+   tomograph), a counted run and an audited rerun (the bootstraps
+   profiled for the device's busy time); (d) every deterministic output of
+   both CLIs on examples/data's records, the card against the CPU in
+   float64 (1e-10 of scale, equal lp_iterations) and float32 against
+   float64 (5e-3); (e) resumable_bootstrap (16,384 resamples in chunks of
+   4,096, one launch each) interrupted after 2 chunks and resumed, equal to
+   the uninterrupted run, the StageTimer report of (a)-(c) and a
+   utils.trace() of one bootstrap call that names the kernel; (f) the
+   examples at reduced sizes, figures off, each timed, then rerun under
+   the device audit (its MCMC chains and 'pgdb' loops shortened). Every
+   counted run resets the kernels' counts before it and reads them after.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -230,6 +251,21 @@ MCMC_AUDIT_BME = dict(n_samples=4, burn_steps=4, adapt_step=False)
 MCMC_AUDIT_PROCESS = dict(n_points=8, burn_steps=8, adapt_step=False, thinning=1,
                           mode_seek=5, curv_probes=2)
 MCMC_AUDIT_FOUR = dict(n_points=4, burn_steps=2, mode_seek=5, curv_probes=2)
+
+# phase 11: the user entry points (the CLIs, the utilities, the examples)
+CLI_STATE = (16_384, 500)  # phase 3's GHZ-4 record: bootstrap resamples, polytope margins
+CLI_KRON = (6, 10_000, 256)  # qubits, shots, bootstrap resamples
+CLI_PROCESS_POINTS = 256  # bootstrap resamples on phase 8's 4-qubit record
+CLI_LEVELS = [0.5, 0.9, 0.99]
+CLI_CARD_TOL = 1e-10  # card vs CPU in float64, relative to the output's scale
+CLI_F32_TOL = 5e-3  # float32 vs float64 on the card (the polytope's F32_F64_ATOL)
+RESUME = (16_384, 4_096, 2)  # points, chunk size, chunks before the interruption
+B1_PER_F32_BATCH = 1  # rhor_mle launches of one float32 'mle-rhor' batch on the card
+EXAMPLE_BOOT = 256
+EXAMPLE_REPEATS = 3
+EXAMPLE_MAX_QUBITS = 6
+EXAMPLE_QUALITY_REPEATS = 50
+EXAMPLE_POSTERIOR = dict(n_qubits=1, n_shots=500, n_points=80, burn_steps=200, n_boot=60)
 
 
 def log(msg: str) -> None:
@@ -2217,6 +2253,458 @@ def phase10_mcmc(card, tmg, est, tmg4):
     log(f"    phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+def _counted(what, fn, tally, b1=None):
+    """Run fn() once as a counted run of phase 11's main path: every kernel's
+    count set to 0 just before and read just after. rhor_mle_flat must not
+    launch, rhor_mle `b1` times where given. Adds the rhor_mle launches to
+    `tally` and returns (fn's value, wall seconds, rhor_mle launches)."""
+    from quantpy_tpu_torch.ops import kernels
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b1_n, b2_n = kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches
+    tally[0] += b1_n
+    if b2_n:
+        raise AssertionError(f"{what} launched rhor_mle_flat {b2_n} times")
+    if b1 is not None and b1_n != b1:
+        raise AssertionError(f"{what} launched rhor_mle {b1_n} times, expected {b1}")
+    return out, seconds, b1_n
+
+
+def _audited_busy_ms(what, fn, profile):
+    """fn() once more under the device audit and, with `profile`,
+    torch.profiler: raise if an operation ran off DEVICE; return the
+    device's busy milliseconds (the audit slows the host, not the card's
+    kernels; None unprofiled) and the aten ops seen."""
+    audit = DeviceAudit()
+
+    def run():
+        with audit:
+            fn()
+            torch.cuda.synchronize()
+
+    busy = None
+    if profile:
+        busy = device_busy_ms(run)
+    else:
+        run()
+    if audit.off_device:
+        raise AssertionError(f"{what}: operations off {DEVICE}: {sorted(audit.off_device)}")
+    return busy, audit.n_ops
+
+
+def _check_cli_output(what, out, kind, n_levels):
+    import numpy as np
+
+    keys = {"state" if kind == "state" else "process", "fidelity_min", "fidelity_max",
+            "hs_radius"}
+    if set(out) != keys:
+        raise AssertionError(f"{what}: output keys {sorted(out)}, expected {sorted(keys)}")
+    radius = np.asarray(out["hs_radius"])
+    fmin, fmax = np.asarray(out["fidelity_min"]), np.asarray(out["fidelity_max"])
+    values = np.concatenate([np.asarray(out[k], dtype=float) for k in keys])
+    if not (radius.shape == fmin.shape == fmax.shape == (n_levels,)
+            and np.all(np.isfinite(values)) and np.all(radius >= 0)
+            and np.all(np.diff(radius) >= 0) and np.all(fmin <= fmax + 1e-6)):
+        raise AssertionError(f"{what}: implausible output {out}")
+
+
+def _cli_invocation(what, module, kind, path, argv, tally, timer, b1, profile=False):
+    """One console invocation, `module.main(["-i", path, ...argv])`, on the
+    card: the host's share (parsing, validation, the tomograph), the counted
+    run timed in `timer`'s stage `what`, its output checked, then an
+    audited rerun, profiled with `profile` for the device's busy time.
+    Returns the output and the wall seconds."""
+    from quantpy_tpu_torch.cli import common
+
+    t0 = time.perf_counter()
+    doc = common.load_input(path)
+    t1 = time.perf_counter()
+    common.validate_record(doc, kind)
+    t2 = time.perf_counter()
+    module._build_tomograph(doc, DEVICE)
+    t3 = time.perf_counter()
+    out_path = f"{path}.{what.replace(' ', '_')}.out.json"
+    args = ["-i", path, "-o", out_path, "--device", DEVICE] + argv
+
+    def invoke():
+        with timer.stage(what):
+            module.main(args)
+
+    _, seconds, launched = _counted(what, invoke, tally, b1)
+    with open(out_path) as fp:
+        out = json.load(fp)
+    _check_cli_output(what, out, kind, len(CLI_LEVELS))
+    busy, n_ops = _audited_busy_ms(what, lambda: module.main(args), profile)
+    device = (f"device busy {busy / 1e3:.3f} s in the audited rerun, idle share "
+              f"{idle_share(busy, seconds * 1e3)}" if profile else "the audited rerun unprofiled")
+    log(f"    {what}: {seconds:.3f} s (host: parse {t1 - t0:.3f}, validate {t2 - t1:.3f}, "
+        f"tomograph {t3 - t2:.3f} s); {device} ({n_ops} aten ops, all on {DEVICE}); "
+        f"rhor_mle launches {launched}; hs radii "
+        f"{[round(v, 6) for v in out['hs_radius']]}, fidelity band "
+        f"[{out['fidelity_min'][-1]:.6f}, {out['fidelity_max'][-1]:.6f}] at "
+        f"{CLI_LEVELS[-1]}")
+    return out, seconds
+
+
+def _write_record(path, doc):
+    t0 = time.perf_counter()
+    with open(path, "w") as fp:
+        json.dump(doc, fp)
+    log(f"    record {Path(path).name}: {Path(path).stat().st_size / 2**20:.1f} MiB, "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def _cli_state_rows(card, tmg, tmp, tally, timer):
+    """Phase 11, part (a): the state CLI on phase 3's GHZ-4 record."""
+    import numpy as np
+
+    from quantpy_tpu_torch.cli import state_interval
+
+    n_boot, margins = CLI_STATE
+    n = tmg.state.n_qubits
+    path = _write_record(f"{tmp}/ghz{n}_state.json", {
+        "povm_matrix": tmg.povm_matrix.tolist(),
+        "outcomes": tmg.results.astype(int).tolist(),
+        "target_state": tmg.state.bloch.tolist(),
+        "conf_levels": CLI_LEVELS,
+    })
+    log(f"    (a) state CLI, GHZ({n}), proj-set, {int(tmg.n_measurements[0])} shots, "
+        f"--method mle-rhor, float32, on {card}")
+    rows = (
+        ("bootstrap", ["--interval", "bootstrap", "--n-points", str(n_boot)], B1_PER_F32_BATCH),
+        ("moment", ["--interval", "moment"], 0),
+        ("sugiyama", ["--interval", "sugiyama"], 0),
+        ("polytope", ["--interval", "polytope", "--n-points", str(margins)], 0),
+    )
+    for what, argv, b1 in rows:
+        _cli_invocation(f"state {what}", state_interval, "state", path,
+                        ["--method", "mle-rhor"] + argv, tally, timer, b1,
+                        profile=what == "bootstrap")
+    # the console entry as a user runs it, in a process of its own
+    out_path = f"{tmp}/console.out.json"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "quantpy_tpu_torch.cli.state_interval", "-i", path, "-o",
+         out_path, "--no-ci", "--device", DEVICE],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+    )
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m quantpy_tpu_torch.cli.state_interval failed:\n"
+                             f"{res.stderr[-2000:]}")
+    with open(out_path) as fp:
+        console = json.load(fp)["state"]
+    here = state_interval.run(state_interval.load_input(path), no_ci=True, device=DEVICE)
+    gap = float(np.max(np.abs(np.subtract(console, here["state"]))))
+    log(f"    python -m quantpy_tpu_torch.cli.state_interval --no-ci: {seconds:.2f} s in its own "
+        f"process (interpreter, imports and the card's start included); its 'lin' state "
+        f"against this process's: max |diff| {gap:.3e}")
+    if not gap <= 1e-6:
+        raise AssertionError(f"the console entry's state differs from run()'s by {gap}")
+    return path
+
+
+def _cli_kron_rows(card, tmp, tally, timer):
+    """Phase 11, part (b): the state CLI on a kron-mode record."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.cli import state_interval
+
+    n, shots, n_boot = CLI_KRON
+    tmg = qtt.StateTomograph(qtt.GHZ(n), key=611)
+    tmg.experiment(shots, "proj-set")
+    if not tmg.kron_mode:
+        raise AssertionError(f"GHZ({n}) with proj-set did not take kron mode")
+    path = _write_record(f"{tmp}/ghz{n}_kron.json", {
+        "povm_kron": tmg.povm_kron.tolist(),
+        "n_qubits": n,
+        "outcomes": tmg.results.astype(int).tolist(),
+        "target_state": tmg.state.bloch.tolist(),
+        "conf_levels": CLI_LEVELS,
+    })
+    log(f"    (b) state CLI, kron record GHZ({n}), outcomes {tmg.results.shape}, {shots} shots, "
+        "float32")
+    for what, argv in (("moment", ["--interval", "moment"]),
+                       ("bootstrap", ["--interval", "bootstrap", "--n-points", str(n_boot)])):
+        _cli_invocation(f"kron {what}", state_interval, "state", path,
+                        ["--method", "mle-rhor"] + argv, tally, timer, 0,
+                        profile=what == "bootstrap")
+
+
+def _cli_process_rows(card, tmg4, tmp, tally, timer):
+    """Phase 11, part (c): the process CLI on phase 8's 4-qubit record."""
+    from quantpy_tpu_torch.cli import process_interval
+
+    n = tmg4.channel.n_qubits
+    path = _write_record(f"{tmp}/process{n}.json", {
+        "povm_matrix": tmg4.tomographs[0].povm_matrix.tolist(),
+        "input_states": [s.bloch.tolist() for s in tmg4.input_basis.elements],
+        "outcomes": tmg4.results.astype(int).tolist(),
+        "target_process": tmg4.channel.choi.bloch.tolist(),
+        "conf_levels": CLI_LEVELS,
+    })
+    log(f"    (c) process CLI, {n} qubits, {len(tmg4.tomographs)} inputs, proj-set, "
+        f"{int(tmg4.tomographs[0].n_measurements[0])} shots, --method lifp, float32")
+    for what, argv in (("moment", ["--interval", "moment"]),
+                       ("bootstrap", ["--interval", "bootstrap", "--n-points",
+                                      str(CLI_PROCESS_POINTS)])):
+        _cli_invocation(f"process {what}", process_interval, "process", path,
+                        ["--method", "lifp"] + argv, tally, timer, 0,
+                        profile=what == "bootstrap")
+
+
+@contextlib.contextmanager
+def _recorded(module, name):
+    """`module.name`, an interval class, replaced by a subclass that keeps
+    its instances in the list this yields."""
+    made = []
+    base = getattr(module, name)
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    setattr(module, name, Recorded)
+    try:
+        yield made
+    finally:
+        setattr(module, name, base)
+
+
+def _cli_outputs(device, dtype):
+    """Every deterministic output of the two CLIs on the bundled records, run
+    on `device` in `dtype`: {name: values}, and the polytopes'
+    lp_iterations."""
+    from quantpy_tpu_torch import config
+    from quantpy_tpu_torch.cli import common, process_interval, state_interval
+
+    data = REPO / "examples" / "data"
+    state_doc = common.load_input(data / "ghz2_state_record.json")
+    process_doc = common.load_input(data / "cnot2_process_record.json")
+    prev = config.rdtype()
+    config.set_dtype(dtype)
+    out, iterations = {}, []
+    try:
+        with _recorded(state_interval, "PolytopeStateInterval") as made:
+            for method in ("lin", "mle-rhor"):
+                for interval in ("moment", "sugiyama", "polytope"):
+                    res = state_interval.run(state_doc, method=method, interval=interval,
+                                             device=device)
+                    for key, values in res.items():
+                        out[f"state {method} {interval} {key}"] = values
+            res = process_interval.run(process_doc, interval="moment", device=device)
+            for key, values in res.items():
+                out[f"process lifp moment {key}"] = values
+        iterations = [iv.lp_iterations for iv in made]
+    finally:
+        config.set_dtype(prev)
+    return out, iterations
+
+
+def _cli_small_checks():
+    """Phase 11, part (d): the CLIs' deterministic outputs on the bundled
+    2-qubit records, the card against the CPU in float64 and float32
+    against float64 on the card."""
+    import numpy as np
+
+    audit = DeviceAudit()
+    with audit:
+        card, card_iters = _cli_outputs(DEVICE, torch.float64)
+    if audit.off_device:
+        raise AssertionError(f"(d) operations off {DEVICE}: {sorted(audit.off_device)}")
+    cpu, cpu_iters = _cli_outputs("cpu", torch.float64)
+    worst = max(float(np.max(np.abs(np.subtract(card[k], cpu[k]))))
+                / max(1.0, float(np.max(np.abs(cpu[k])))) for k in cpu)
+    log(f"    (d) bundled records (GHZ-2 state, CNOT process), {len(cpu)} outputs, float64: "
+        f"card vs CPU max |diff| / scale {worst:.3e} "
+        f"(limit {CLI_CARD_TOL:.0e}); lp_iterations card {card_iters}, CPU {cpu_iters}")
+    if not (set(card) == set(cpu) and worst <= CLI_CARD_TOL and card_iters == cpu_iters):
+        raise AssertionError("(d) the CLIs' outputs on the card differ from the CPU's")
+    f32, f32_iters = _cli_outputs(DEVICE, torch.float32)
+    gaps = {k: float(np.max(np.abs(np.subtract(f32[k], card[k])))) for k in card}
+    key = max(gaps, key=gaps.get)
+    log(f"    (d) float32 against float64 on the card: max |diff| {gaps[key]:.3e} ({key}; limit "
+        f"{CLI_F32_TOL:.0e}); lp_iterations {f32_iters}")
+    if not gaps[key] <= CLI_F32_TOL:
+        raise AssertionError(f"(d) float32 outputs {gaps[key]} from float64: {key}")
+
+
+def _utility_rows(card, path, tally, timer, rate_ms):
+    """Phase 11, part (e): resumable_bootstrap on (a)'s tomograph, the
+    StageTimer report of (a) to (c) and a trace of one bootstrap call."""
+    import numpy as np
+
+    from quantpy_tpu_torch.cli import state_interval
+    from quantpy_tpu_torch.tomography import bootstrap_core
+    from quantpy_tpu_torch.utils import ChunkedAccumulator, resumable_bootstrap, trace
+
+    n_points, chunk, n_before = RESUME
+    n_chunks = -(-n_points // chunk)
+    tmg = state_interval._build_tomograph(state_interval.load_input(path), DEVICE)
+    tmg.point_estimate("mle-rhor", physical=False)  # as the CLI estimates
+    tmp = Path(path).parent
+
+    def boot(name, points):
+        return resumable_bootstrap(str(tmp / name), tmg, points, chunk_size=chunk,
+                                   method="mle-rhor", max_iter=MLE_ITERS, seed=11)
+
+    full, seconds, _ = _counted("the uninterrupted resumable_bootstrap",
+                                lambda: boot("full.npz", n_points), tally,
+                                n_chunks * B1_PER_F32_BATCH)
+    _counted("the interrupted resumable_bootstrap", lambda: boot("resumed.npz", n_before * chunk),
+             tally, n_before * B1_PER_F32_BATCH)
+    saved = ChunkedAccumulator(str(tmp / "resumed.npz"))
+    resumed, _, _ = _counted("the resumed resumable_bootstrap", lambda: boot("resumed.npz", n_points),
+                             tally, (n_chunks - n_before) * B1_PER_F32_BATCH)
+    gap = float(np.max(np.abs(resumed - full)))
+    single = rate_ms / 1e3
+    log(f"    (e) resumable_bootstrap, {n_points} resamples of RrhoR-{MLE_ITERS} in chunks of "
+        f"{chunk} on (a)'s tomograph: {seconds:.3f} s = {n_points / seconds:.1f} resamples/s "
+        f"with {n_chunks} .npz flushes, against phase 4's single call {N_POINTS / single:.1f}/s; "
+        f"interrupted after {saved.n_chunks} chunks ({saved.n_done} samples) and resumed: max "
+        f"|diff| to the uninterrupted run {gap:.3e}; median {np.median(full):.4e}")
+    if not (full.shape == (n_points,) and np.all(np.isfinite(full)) and gap <= 1e-7):
+        raise AssertionError(f"the resumed bootstrap differs from the uninterrupted one: {gap}")
+    log(f"    StageTimer over (a)-(c), seconds: "
+        f"{json.dumps({k: round(v, 4) for k, v in timer.report().items()})}")
+    trace_dir = tmp / "trace"
+    bloch = tmg._tensor(tmg.reconstructed_state.bloch)
+    gen = torch.Generator(device=tmg.device)
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    with trace(str(trace_dir), device=DEVICE):
+        bootstrap_core.bootstrap_distances(
+            gen, bloch, tmg._tensor(tmg.povm_matrix), tmg._tensor(tmg.n_measurements),
+            n_points=chunk, method="mle-rhor", max_iter=MLE_ITERS)
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    text = files[0].read_text() if len(files) == 1 else ""
+    named = "rhor_mle_kernel" in text
+    log(f"    trace() around one {chunk}-resample bootstrap_distances call: "
+        f"{time.perf_counter() - t0:.2f} s, {len(text) / 2**20:.2f} MiB Chrome trace; names "
+        f"the rhor_mle kernel: {named}")
+    if len(files) != 1 or (B1_PER_F32_BATCH and not named):
+        raise AssertionError(f"trace() wrote {files}; the rhor_mle kernel named: {named}")
+
+
+@contextlib.contextmanager
+def _short_loops():
+    """The examples' audited reruns: the same code with shorter loops, the
+    process chains with phase 10's audit passes (MCMC_AUDIT_PROCESS) and
+    'pgdb' with 2 iterations (the audit's Python dispatch would slow the
+    full loops several-fold)."""
+    import quantpy_tpu_torch as qtt
+
+    chains, estimate = qtt.MHMCProcessInterval, qtt.ProcessTomograph.point_estimate
+
+    class Short(chains):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **{**kwargs, **MCMC_AUDIT_PROCESS})
+
+    def short_estimate(self, method="lifp", *args, **kwargs):
+        if method == "pgdb":
+            kwargs["n_iter"] = 2
+        return estimate(self, method, *args, **kwargs)
+
+    qtt.MHMCProcessInterval, qtt.ProcessTomograph.point_estimate = Short, short_estimate
+    try:
+        yield
+    finally:
+        qtt.MHMCProcessInterval, qtt.ProcessTomograph.point_estimate = chains, estimate
+
+
+def _example_rows(card, tally):
+    """Phase 11, part (f): the examples at reduced sizes, figures off."""
+    import os
+    import warnings
+
+    from quantpy_tpu_torch.examples import (
+        fidelity_intervals,
+        posterior_sampling,
+        real_records,
+        scaling_study,
+        state_tomography,
+        teleportation,
+    )
+
+    os.environ["EXAMPLES_FIGURES"] = "0"
+    device = ["--device", DEVICE]
+
+    def posterior():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # short-chain R-hat
+            cd, bd, r_hat, ess = posterior_sampling.process_posterior(**EXAMPLE_POSTERIOR)
+        log(f"    chain d50/d90 {cd.round(4)}, bootstrap {bd.round(4)}, R-hat {r_hat:.3f}, "
+            f"ESS {ess:.0f}")
+        import numpy as np
+
+        if not (np.all(np.isfinite(cd)) and np.all(np.isfinite(bd))
+                and cd[0] < 5 * bd[1] and bd[0] < 5 * max(cd[1], 1e-3)):
+            raise AssertionError("the posterior and the bootstrap are not on one scale")
+
+    rows = (
+        ("teleportation.main", lambda: teleportation.main(device)),
+        (f"real_records.main --boot {EXAMPLE_BOOT}",
+         lambda: real_records.main(["--boot", str(EXAMPLE_BOOT)] + device)),
+        (f"fidelity_intervals.main --repeats {EXAMPLE_REPEATS}",
+         lambda: fidelity_intervals.main(["--repeats", str(EXAMPLE_REPEATS)] + device)),
+        (f"posterior_sampling.process_posterior({EXAMPLE_POSTERIOR})", posterior),
+        (f"state_tomography.main --max-qubits {EXAMPLE_MAX_QUBITS}",
+         lambda: state_tomography.main(
+             ["--max-qubits", str(EXAMPLE_MAX_QUBITS), "--repeats",
+              str(EXAMPLE_QUALITY_REPEATS)] + device)),
+        (f"scaling_study.main({EXAMPLE_MAX_QUBITS})",
+         lambda: scaling_study.main(EXAMPLE_MAX_QUBITS)),
+    )
+    log(f"    (f) the examples, figures off, on {card}")
+    for what, run in rows:
+        _, seconds, launched = _counted(what, run, tally)
+        audit = DeviceAudit()
+        t0 = time.perf_counter()
+        with audit, _short_loops(), contextlib.redirect_stdout(None):
+            run()
+            torch.cuda.synchronize()
+        log(f"    {what}: {seconds:.3f} s; rhor_mle launches {launched}; audited rerun "
+            f"{time.perf_counter() - t0:.3f} s, {audit.n_ops} aten ops")
+        if audit.off_device:
+            raise AssertionError(f"{what}: operations off {DEVICE}: {sorted(audit.off_device)}")
+
+
+def phase11_entry_points(card, tmg, tmg4, rate_ms):
+    """The user entry points on the card; returns the rhor_mle launches of
+    its counted runs."""
+    import tempfile
+
+    from quantpy_tpu_torch.utils import StageTimer
+
+    log("[11] the user entry points on the card")
+    t0 = time.perf_counter()
+    tally = [0]
+    timer = StageTimer(device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _cli_state_rows(card, tmg, tmp, tally, timer)
+        _cli_kron_rows(card, tmp, tally, timer)
+        _cli_process_rows(card, tmg4, tmp, tally, timer)
+        log(f"    (a)-(c): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        _cli_small_checks()
+        log(f"    (d): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        _utility_rows(card, path, tally, timer, rate_ms)
+        log(f"    (e): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    _example_rows(card, tally)
+    log(f"    (f): {time.perf_counter() - t1:.1f} s")
+    log(f"    phase 11: {time.perf_counter() - t0:.1f} s; rhor_mle launches in its counted runs "
+        f"{tally[0]}, rhor_mle_flat none")
+    return tally[0]
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -2224,7 +2712,7 @@ def main() -> int:
     phase1_build()
     measured = phase2_kernel_vs_plain()
     tmg, est, launches = phase3_main_path(card)
-    phase4_rate(card, tmg, est)
+    rate_ms = phase4_rate(card, tmg, est)
     flat_launches = phase5_flat_path(card, tmg, est)
     phase6_cholesky_mle(card)
     phase7_kron(card)
@@ -2232,6 +2720,7 @@ def main() -> int:
     launches += process_launches
     phase9_intervals(card)
     phase10_mcmc(card, tmg, est, process_tmg)
+    launches += phase11_entry_points(card, tmg, process_tmg, rate_ms)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

@@ -16,13 +16,30 @@ reconstruction ('states'), on the host objects `Channel`, `Operator` and
 `HolderInterval`) run on `stats`, `convex` (closed-form ball bounds and
 batched PDHG linear programs) and `tomography.kron_analytic`; the
 coverage harness of the confidence polytopes is
-`tomography.polytopes.verification`.
+`tomography.polytopes.verification`. The console entry points
+(`cli.state_interval`, `cli.process_interval`) read JSON records of
+measured counts; `utils` holds stage timers, profiler traces and a
+resumable bootstrap; `examples` the research walkthroughs.
 
 The default device is the card, ``cuda`` (`config.get_device()`); CPU work
 is asked for with ``config.set_device("cpu")`` or ``device="cpu"``.
 """
 
-from . import basis, channel, config, convex, metrics, mhmc, operator, qobj, routines, stats
+from . import (
+    basis,
+    channel,
+    config,
+    convex,
+    geometry,
+    measurements,
+    metrics,
+    mhmc,
+    operator,
+    ops,
+    qobj,
+    routines,
+    stats,
+)
 from .base import BaseQuantum
 from .basis import Basis
 from .channel import (
@@ -109,4 +126,7 @@ __all__ = [
     "stats",
     "metrics",
     "mhmc",
+    "geometry",
+    "measurements",
+    "ops",
 ]

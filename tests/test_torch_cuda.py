@@ -1,7 +1,8 @@
 """The RrhoR kernels on the card against their plain versions, and the
 paths without a kernel (Cholesky MLE, kron chains, process tomography, the
 analytic intervals' moments, linear programs and coverage harness, the MCMC
-chains' targets, drifts and steps) on the card against the CPU.
+chains' targets, drifts and steps) on the card against the CPU; the console
+entry points and the utilities on the card.
 
 Marked `cuda`: these tests need an NVIDIA GPU with sm_90a (H100) and nvcc,
 and skip elsewhere. Run them on the card with
@@ -548,3 +549,85 @@ def test_mcmc_intervals_default_to_the_card(cuda):
     rho, radius, _ = qtt.bayesian_mean_estimate(tmg, n_samples=20, n_chains=2, burn_steps=20)
     assert rho.is_density_matrix(verbose=False) and np.isfinite(radius)
     assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == before
+
+
+def _record(name):
+    import json
+    from pathlib import Path
+
+    with open(Path(__file__).resolve().parents[1] / "examples" / "data" / name) as fp:
+        return json.load(fp)
+
+
+def test_state_cli_on_the_card(cuda):
+    """In float32 the CLI's bootstrap hands B1 one batch; in float64 every
+    deterministic output equals the CPU's."""
+    import numpy as np
+
+    from quantpy_tpu_torch import config
+    from quantpy_tpu_torch.cli import process_interval, state_interval
+
+    doc = _record("ghz2_state_record.json")
+    before = kernels.rhor_mle.launches
+    out = state_interval.run(doc, method="mle-rhor", interval="bootstrap", n_points=256,
+                             device="cuda")
+    assert kernels.rhor_mle.launches == before + 1
+    assert np.all(np.isfinite(out["hs_radius"])) and np.all(np.diff(out["hs_radius"]) >= 0)
+    prev = config.rdtype()
+    config.set_dtype(torch.float64)
+    try:
+        for method, interval in (("lin", "sugiyama"), ("mle-rhor", "polytope")):
+            card = state_interval.run(doc, method=method, interval=interval, device="cuda")
+            cpu = state_interval.run(doc, method=method, interval=interval, device="cpu")
+            for key in cpu:
+                assert np.abs(np.subtract(card[key], cpu[key])).max() <= 1e-10, key
+        pdoc = _record("cnot2_process_record.json")
+        card = process_interval.run(pdoc, device="cuda")
+        cpu = process_interval.run(pdoc, device="cpu")
+        for key in cpu:
+            assert np.abs(np.subtract(card[key], cpu[key])).max() <= 1e-10, key
+    finally:
+        config.set_dtype(prev)
+
+
+def test_resumable_bootstrap_on_the_card(cuda, tmp_path):
+    """Resumed equals uninterrupted, bit for bit; each float32 chunk is one
+    B1 launch; a trace of a chunk names the kernel."""
+    import numpy as np
+
+    from quantpy_tpu_torch.utils import resumable_bootstrap, trace
+
+    tmg = qtt.StateTomograph(qtt.GHZ(2), key=81)
+    tmg.experiment(2000, "proj-set")
+    tmg.point_estimate("mle-rhor")
+    before = kernels.rhor_mle.launches
+    full = resumable_bootstrap(str(tmp_path / "a.npz"), tmg, 96, chunk_size=32,
+                               method="mle-rhor", seed=5)
+    assert kernels.rhor_mle.launches == before + 3
+    resumable_bootstrap(str(tmp_path / "b.npz"), tmg, 64, chunk_size=32, method="mle-rhor",
+                        seed=5)
+    resumed = resumable_bootstrap(str(tmp_path / "b.npz"), tmg, 96, chunk_size=32,
+                                  method="mle-rhor", seed=5)
+    np.testing.assert_array_equal(resumed, full)
+    with trace(str(tmp_path / "trace")):
+        resumable_bootstrap(str(tmp_path / "c.npz"), tmg, 32, chunk_size=32,
+                            method="mle-rhor")
+    (path,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    assert "rhor_mle_kernel" in path.read_text()
+
+
+def test_stage_timer_synchronizes_the_card(cuda):
+    """A stage ends only after the card has finished the work queued in it."""
+    from quantpy_tpu_torch.utils import StageTimer
+
+    a = torch.randn(2048, 2048, device=cuda)
+    timer = StageTimer()
+    assert timer.device.type == "cuda"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.stage("matmuls"):
+        start.record()
+        for _ in range(50):
+            a = a @ a / 2048
+        end.record()
+    assert end.query()  # the stage waited for the card
+    assert timer.stages["matmuls"] >= 0.9 * start.elapsed_time(end) / 1e3

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6, 7, 8, 9 and 10 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6 to 11 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 678910] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 67891011] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -12,7 +12,10 @@ rows to 2 qubits (the kron row to GHZ(3), put in kron mode by lowering
 `StateTomograph.DENSE_POVM_MAX_ELEMENTS`), with few polytope margins and
 small coverage runs, and phase 10's rows to 1-2 qubits and a few dozen
 steps (its GHZ-4 and 4-qubit experiments become GHZ(2) and a 2-qubit
-channel). What it prints are
+channel), and phase 11's records to GHZ(2), a kron GHZ(3) and that 2-qubit
+channel, with small bootstraps and polytopes, the resumable bootstrap to
+48 points in chunks of 16, and the examples to 1-3 qubits (no launch is
+expected: the CPU has no kernel). What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -48,7 +51,7 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="678910", help="which of phases 6-10 to run")
+    parser.add_argument("--phases", default="67891011", help="which of phases 6-11 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -80,6 +83,18 @@ def main() -> int:
     chip_smoke.MCMC_PROJECTED_STEPS = 4
     chip_smoke.MCMC_HOLDER = (20, 20)
     chip_smoke.MCMC_IDLE_STEPS = 3
+    chip_smoke.CLI_STATE = (64, 20)
+    chip_smoke.CLI_KRON = (3, 2_000, 8)
+    chip_smoke.CLI_PROCESS_POINTS = 8
+    chip_smoke.RESUME = (48, 16, 2)
+    chip_smoke.B1_PER_F32_BATCH = 0
+    chip_smoke.EXAMPLE_BOOT = 32
+    chip_smoke.EXAMPLE_REPEATS = 1
+    chip_smoke.EXAMPLE_MAX_QUBITS = 3
+    chip_smoke.EXAMPLE_QUALITY_REPEATS = 4
+    chip_smoke.EXAMPLE_POSTERIOR = dict(n_qubits=1, n_shots=500, n_points=20, burn_steps=20,
+                                        n_boot=20)
+    chip_smoke.device_busy_ms = lambda fn: (fn(), 0.0)[1]
     qtt.MHMCProcessInterval.PROJECTED_TARGET_QUBITS = 2  # the projected row at 2 qubits
     qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000  # 2 qubits dense, 3 in kron mode
     torch.cuda.Event = _HostEvent
@@ -98,7 +113,7 @@ def main() -> int:
 
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
-    phases = args.phases.replace("10", "X")
+    phases = args.phases.replace("11", "Y").replace("10", "X")
     if "6" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase6_cholesky_mle(card)
@@ -116,16 +131,20 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase9_intervals(card)
         print(f"phase 9: {time.perf_counter() - t0:.1f} s on the CPU")
+    tmg = qtt.StateTomograph(qtt.GHZ(2), key=2026)
+    tmg.experiment(chip_smoke.N_SHOTS, "proj-set")
+    est = tmg.point_estimate("mle-rhor")
+    tmg4 = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=7)
+    tmg4.experiment(2_000)
+    tmg4.point_estimate("lifp")
     if "X" in phases:
         t0 = time.perf_counter()
-        tmg = qtt.StateTomograph(qtt.GHZ(2), key=2026)
-        tmg.experiment(chip_smoke.N_SHOTS, "proj-set")
-        est = tmg.point_estimate("mle-rhor")
-        tmg4 = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=7)
-        tmg4.experiment(2_000)
-        tmg4.point_estimate("lifp")
         chip_smoke.phase10_mcmc(card, tmg, est, tmg4)
         print(f"phase 10: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "Y" in phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase11_entry_points(card, tmg, tmg4, float("nan"))
+        print(f"phase 11: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

@@ -71,7 +71,7 @@ non-zero exit code, and nothing falls back to the CPU:
    true point wherever it is feasible: GHZ-4 dense (1,000-margin
    polytope), the f32 polytope against a float64 rerun, GHZ-6 in kron mode
    (200 margins), depolarizing(0.1, 4) with 256 inputs (exact per-state
-   moments, Holder's 256 children, the two-factor polytope at 50 margins)
+   moments, Holder's 256 children, the two-factor polytope at 25 margins)
    and its Hutchinson moments; (c) the coverage harness at 10^4 trials x 18
    levels (GHZ-4; 3-qubit QPT with sic inputs).
 10. The MCMC intervals on the card (no kernel of their own): (a) at 2
@@ -110,6 +110,24 @@ non-zero exit code, and nothing falls back to the CPU:
    examples at reduced sizes, figures off, each timed, then rerun under
    the device audit (its MCMC chains and 'pgdb' loops shortened). Every
    counted run resets the kernels' counts before it and reads them after.
+12. The mesh layer (`quantpy_tpu_torch.parallel`) on MESH_SHARDS logical
+   shards of the one card, float32 unless stated: (a) phase 3's GHZ-4
+   bootstrap, 16,384 resamples with RrhoR-60, over 4 shards (one rhor_mle
+   launch per shard, counted) and over 1, equal to the shards'
+   single-device calls on the shards' generators, the rates beside phase
+   4's single call, the 4-shard call's idle share; (b) the 6-qubit
+   operator-sharded functions against kron_core in float64, then GHZ-12
+   with proj-set (8.7 GB of counts): the operator-sharded simulate, lin
+   and MLE-60 with times, peak memory and hs to the truth, then the
+   single-device kron_core MLE-60 on the gathered counts, its peak and its
+   gap to the sharded estimate (11 qubits where 12 do not fit, said so);
+   (c) MHMCStateInterval on phase 3's experiment and the anchored kraus
+   chains of depolarizing(0.2, 1), 8 chains over 4 shards, against their
+   local runs; (d) phase 8's process bootstrap (256 resamples) and phase
+   9's GHZ-4 coverage (10^4 trials) over 4 shards and over 1, the coverage
+   hits equal to the per-shard coverage_hits; (e)
+   quantpy_tpu_torch.examples.multichip, counted, then audited for
+   devices.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -184,10 +202,10 @@ STATES_RHOR_LAUNCHES = 1  # rhor_mle launches of method='states' with 'mle-rhor'
 # Phase 9. The dense state row is phase 3's design (qubits, shots) with
 # PolytopeStateInterval's default n_points; the kron row is phase 7's GHZ-6
 # with the polytope at docs/benchmarks.md's measured n_points = 200; the
-# channel row is phase 8's design with the two-factor polytope at 50 margins.
+# channel row is phase 8's design with the two-factor polytope at 25 margins.
 ANALYTIC_STATE = (4, 10_000, 1000)  # qubits, shots, polytope n_points
 ANALYTIC_KRON = (6, 10_000, 200)
-ANALYTIC_CHANNEL = (4, 2_000, 50)
+ANALYTIC_CHANNEL = (4, 2_000, 25)
 ANALYTIC_LEVELS = (0.5, 0.9, 0.99)  # where each row's radii and bounds are printed
 # the float32 polytope against a float64 rerun: tests/test_intervals.py's
 # test_polytope_interval_f32_vs_x64 (n_points and tolerance)
@@ -237,11 +255,11 @@ MCMC_SMALL_SHOTS = 2_000
 MCMC_CHAIN_STEPS = 50
 MCMC_STATE = (1000, 1000, 8)
 # (d): n_points cut from 600 and burn_steps from 4,000 to fit the time limit
-MCMC_PROCESS = (3, 2_000, 400, 500, 4, 8)
+MCMC_PROCESS = (3, 2_000, 200, 250, 4, 8)
 MCMC_BOOT_POINTS = 400
-MCMC_FOUR = (500, 200, 200)
-MCMC_PROJECTED_STEPS = 10
-MCMC_HOLDER = (200, 200)
+MCMC_FOUR = (250, 100, 100)
+MCMC_PROJECTED_STEPS = 5
+MCMC_HOLDER = (100, 100)
 MCMC_TP_TOL = 1e-5
 MCMC_MIN_EIG = -1e-6
 MCMC_IDLE_STEPS = 20
@@ -261,11 +279,25 @@ CLI_CARD_TOL = 1e-10  # card vs CPU in float64, relative to the output's scale
 CLI_F32_TOL = 5e-3  # float32 vs float64 on the card (the polytope's F32_F64_ATOL)
 RESUME = (16_384, 4_096, 2)  # points, chunk size, chunks before the interruption
 B1_PER_F32_BATCH = 1  # rhor_mle launches of one float32 'mle-rhor' batch on the card
-EXAMPLE_BOOT = 256
+EXAMPLE_BOOT = 128
 EXAMPLE_REPEATS = 3
 EXAMPLE_MAX_QUBITS = 6
 EXAMPLE_QUALITY_REPEATS = 50
-EXAMPLE_POSTERIOR = dict(n_qubits=1, n_shots=500, n_points=80, burn_steps=200, n_boot=60)
+EXAMPLE_POSTERIOR = dict(n_qubits=1, n_shots=500, n_points=40, burn_steps=100, n_boot=60)
+# phase 12: the mesh layer, MESH_SHARDS logical shards on the one card
+MESH_SHARDS = 4
+MESH_BOOT_POINTS = N_POINTS
+MESH_KRON = (12, 11)  # qubits of the operator-sharded row; the second if the first does not fit
+MESH_CHECK_QUBITS = 6  # the float64 equalities against kron_core
+MESH_MATCH_TOL = 1e-5  # sharded vs single-device MLE-60, float32, max |delta bloch|
+# the chains share the one card shard after shard, so they are kept short
+MESH_STATE_CHAINS = dict(n_points=400, burn_steps=300, n_chains=8)
+MESH_KRAUS_CHAINS = dict(n_points=160, burn_steps=100, n_chains=8, mode_seek=100,
+                         curv_probes=8)
+MESH_STATE_REL = 0.3  # the tolerances of tests/test_parallel.py
+MESH_KRAUS_REL = 0.7
+MESH_PROCESS = (256, 50)  # resamples, NS-Dykstra iterations
+MESH_COVERAGE_EXACT = 1_000
 
 
 def log(msg: str) -> None:
@@ -838,18 +870,24 @@ def phase6_cholesky_mle(card):
     n_points, max_iter = 1024, 100
     _reset_launches()
     audit = DeviceAudit()
-    t0 = time.perf_counter()
     with audit:
-        interval = qtt.BootstrapStateInterval(
-            tmg, n_points=n_points, method="mle", max_iter=max_iter, key=6, state=est
-        )
-        dists, _ = interval((0.5, 0.9, 0.99))
+        # audited at a tenth of the iterations: each L-BFGS iteration runs
+        # the same operations, and the audit's dispatch costs ~25 s at 100
+        qtt.BootstrapStateInterval(
+            tmg, n_points=n_points, method="mle", max_iter=max_iter // 10, key=6, state=est
+        )()
         torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    interval = qtt.BootstrapStateInterval(
+        tmg, n_points=n_points, method="mle", max_iter=max_iter, key=6, state=est
+    )
+    dists, _ = interval((0.5, 0.9, 0.99))
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     median = _check_distances(interval.distances, n_points, "'mle' bootstrap")
     log(f"    BootstrapStateInterval('mle', {n_points} resamples, max_iter {max_iter}): hs at "
         f"(0.5, 0.9, 0.99) {[float(x) for x in dists]}; median {median:.4e}; first run "
-        f"{wall:.2f} s with the audit on")
+        f"{wall:.2f} s (the audited pass: max_iter {max_iter // 10})")
     _check_no_kernel_and_on_card(audit, "the 'mle' bootstrap")
 
     # 'mle' beside RrhoR-60 on one fixed draw
@@ -900,8 +938,8 @@ def phase6_cholesky_mle(card):
             gen, bloch_est, povm, n_meas, n_points=n_points, method="mle", max_iter=max_iter
         )
 
-    ms = cuda_ms(call, 3)
-    log(f"    bootstrap_distances('mle'), {n_points} resamples, max_iter {max_iter}: best of 3 "
+    ms = cuda_ms(call, 2)
+    log(f"    bootstrap_distances('mle'), {n_points} resamples, max_iter {max_iter}: best of 2 "
         f"{ms:.3f} ms = {n_points / ms * 1e3:.1f} resamples/s on {card}")
     log_idle_share("the 'mle' bootstrap call", call, ms)
 
@@ -2705,6 +2743,358 @@ def phase11_entry_points(card, tmg, tmg4, rate_ms):
     return tally[0]
 
 
+# -- phase 12: the mesh layer -----------------------------------------------------
+
+
+def _mesh(k):
+    from quantpy_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[DEVICE] * k)
+
+
+def _mesh_resample_row(card, tmg, est, rate_ms, tally):
+    """Phase 12, part (a): phase 3's GHZ-4 bootstrap (RrhoR-60) over
+    MESH_SHARDS logical shards on the card and over one shard."""
+    from quantpy_tpu_torch.parallel import sharded_bootstrap_distances
+    from quantpy_tpu_torch.parallel.mesh import shard_generators
+    from quantpy_tpu_torch.tomography import bootstrap_core
+
+    dev, dtype = tmg.device, tmg.dtype
+    bloch = est.bloch_tensor(dev, dtype)
+    povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=dev)
+    n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=dev)
+    n_points, k = MESH_BOOT_POINTS, MESH_SHARDS
+    meshes = {k: _mesh(k), 1: _mesh(1)}
+
+    def call(size, key=12):
+        return sharded_bootstrap_distances(
+            meshes[size], key, bloch, povm, n_meas, n_points, method="mle-rhor",
+            max_iter=MLE_ITERS)
+
+    d4, seconds, launched = _counted(f"the {k}-shard bootstrap", lambda: call(k), tally,
+                                     b1=k * B1_PER_F32_BATCH)
+    if d4.device != meshes[k].devices[0] or d4.dtype != dtype:
+        raise AssertionError(f"the sharded distances are {d4.dtype} on {d4.device}")
+    median = _check_distances(d4.cpu().numpy(), n_points, f"the {k}-shard bootstrap")
+    per = n_points // k
+    parts = [
+        bootstrap_core.bootstrap_distances(g, bloch, povm, n_meas, per, method="mle-rhor",
+                                           max_iter=MLE_ITERS)
+        for g in shard_generators(meshes[k], 12)
+    ]
+    diff = float((d4 - torch.cat(parts)).abs().max())
+    log(f"    (a) GHZ-{N_QUBITS} bootstrap, {n_points} resamples over {k} logical shards on "
+        f"{card} ({per} per shard), RrhoR-{MLE_ITERS}, float32: first call {seconds:.3f} s, "
+        f"rhor_mle launches {launched}; median hs {median:.4e}; against the {k} single-device "
+        f"calls on the shards' generators max |diff| {diff:.3e}")
+    if diff != 0.0:
+        again = bootstrap_core.bootstrap_distances(
+            shard_generators(meshes[k], 12)[0], bloch, povm, n_meas, per, method="mle-rhor",
+            max_iter=MLE_ITERS)
+        rerun = float((again - parts[0]).abs().max())
+        log(f"      two identical single-device calls differ by {rerun:.3e}")
+        if rerun == 0.0 or diff > HS_TOL_F32:
+            raise AssertionError(
+                f"the sharded bootstrap differs from its shards' single-device calls by {diff}")
+        log("      the single-device program is not deterministic on the card; the shards "
+            f"agree within {HS_TOL_F32:.0e}")
+    call(k)
+    call(1)  # warm
+    ms = {size: cuda_ms(lambda size=size: call(size), 3) for size in (k, 1)}
+    log(f"    {k} shards: best of 3 {ms[k]:.3f} ms = {n_points / ms[k] * 1e3:.1f} resamples/s; "
+        f"1 shard {ms[1]:.3f} ms = {n_points / ms[1] * 1e3:.1f} resamples/s; phase 4's single "
+        f"call {rate_ms:.3f} ms = {N_POINTS / rate_ms * 1e3:.1f} resamples/s, on {card}")
+    log_idle_share(f"the {k}-shard call", lambda: call(k), ms[k])
+
+
+def _mesh_operator_checks():
+    """The 6-qubit equalities of tests/test_torch_parallel.py on the card in
+    float64: the operator-sharded functions against kron_core there."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.parallel import (
+        povm_sharded_probabilities,
+        sharded_kron_adjoint_flat,
+        sharded_kron_estimate_lin,
+        sharded_kron_estimate_mle_rhor,
+        sharded_kron_forward_flat,
+    )
+    from quantpy_tpu_torch.tomography import kron_core, state_core
+
+    f64, dev, n = torch.float64, torch.device(DEVICE), MESH_CHECK_QUBITS
+    mesh = _mesh(MESH_SHARDS)
+    povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=f64, device=dev)
+    bloch = torch.stack([qtt.GHZ(n).bloch_tensor(dev, f64),
+                         qtt.fully_mixed(n).bloch_tensor(dev, f64)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(126)
+    counts = kron_core.kron_simulate(gen, povm1, bloch, 1000.0)
+    flat = counts.reshape(2, -1)
+    povm = torch.as_tensor(qtt.generate_measurement_matrix("proj-set", 4), dtype=f64, device=dev)
+    w = state_core.weighted_povm_flat(povm, torch.full((81,), 1000.0, dtype=f64, device=dev))
+    b4 = qtt.GHZ(4).bloch_tensor(dev, f64)
+    rows = (
+        ("forward", sharded_kron_forward_flat(mesh, bloch, povm1, n),
+         kron_core.kron_forward_flat(povm1, n, bloch), 0.0, 1e-12),
+        ("adjoint", sharded_kron_adjoint_flat(mesh, flat, povm1, n),
+         kron_core.kron_adjoint_flat(povm1, n, flat), 1e-12, 1e-15),
+        ("lin", sharded_kron_estimate_lin(mesh, counts, povm1, n),
+         kron_core.kron_estimate_lin(counts, povm1, n), 1e-10, 1e-13),
+        ("MLE-40", sharded_kron_estimate_mle_rhor(mesh, counts, povm1, n, max_iter=40),
+         kron_core.kron_estimate_mle_rhor(counts, povm1, n, max_iter=40), 1e-8, 1e-10),
+        ("povm_sharded_probabilities", povm_sharded_probabilities(mesh, w, b4), w @ b4, 0.0,
+         1e-10),
+    )
+    for what, got, want, rtol, atol in rows:
+        err = float(((got - want).abs() - rtol * want.abs()).max())
+        log(f"    {n}-qubit {what} over {MESH_SHARDS} shards vs kron_core, float64 on {DEVICE}: "
+            f"max |diff| - rtol |want| {err:.3e} (rtol {rtol:.0e}, atol {atol:.0e})")
+        if not (got.device.type == DEVICE and err <= atol):
+            raise AssertionError(f"the sharded {what} disagrees with kron_core: {err}")
+
+
+def _mesh_operator_row(card, n):
+    """Phase 12, part (b): GHZ-n, proj-set, N_SHOTS shots per POVM: the
+    operator-sharded simulate, lin and MLE-60 over MESH_SHARDS shards, then
+    the single-device MLE-60 on the gathered counts."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.parallel import (
+        sharded_kron_estimate_lin,
+        sharded_kron_estimate_mle_rhor,
+        sharded_kron_simulate,
+    )
+    from quantpy_tpu_torch.tomography import bootstrap_core, kron_core
+
+    dev, f32 = torch.device(DEVICE), torch.float32
+    mesh = _mesh(MESH_SHARDS)
+    povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=f32, device=dev)
+    truth = qtt.GHZ(n).bloch_tensor(dev, f32)
+    out = {"step": None}
+
+    def timed(name, fn):
+        out["step"] = name
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t0
+        out[name + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return result
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = timed("simulate", lambda: sharded_kron_simulate(mesh, 120 + n, povm1, truth,
+                                                             N_SHOTS))
+    lin = timed("lin", lambda: sharded_kron_estimate_lin(mesh, counts, povm1, n))
+    mle = timed("mle", lambda: sharded_kron_estimate_mle_rhor(
+        mesh, counts, povm1, n, init_bloch=lin, max_iter=MLE_ITERS))
+    n_counts = math.prod(counts.shape)
+    shard_shape = tuple(counts.shards[0].shape)
+    hs = {k: float(bootstrap_core._distance_batch("hs", v, truth, n))
+          for k, v in (("lin", lin), ("mle", mle))}
+    gathered = timed("gather", counts.gather)
+    del counts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    single = timed("single", lambda: kron_core.kron_estimate_mle_rhor(
+        gathered, povm1, n, init_bloch=lin, max_iter=MLE_ITERS))
+    del gathered
+    gap = float((single - mle).abs().max())
+    log(f"    (b) GHZ-{n}, proj-set, {N_SHOTS} shots per POVM, float32, over {MESH_SHARDS} "
+        f"logical shards on {card}: counts {n_counts * 4 / 1e9:.2f} GB born split in shards of "
+        f"{shard_shape}")
+    log(f"      simulate {out['simulate_s']:.3f} s (peak {out['simulate_peak_gib']:.2f} GiB), lin "
+        f"{out['lin_s']:.3f} s (peak {out['lin_peak_gib']:.2f} GiB), MLE-{MLE_ITERS} "
+        f"{out['mle_s']:.3f} s (peak {out['mle_peak_gib']:.2f} GiB); hs to the truth lin "
+        f"{hs['lin']:.4e}, MLE {hs['mle']:.4e}")
+    log(f"      gather {out['gather_s']:.3f} s; the single-device kron_core MLE-{MLE_ITERS} on "
+        f"the gathered counts {out['single_s']:.3f} s, peak {out['single_peak_gib']:.2f} GiB; "
+        f"sharded vs single max |diff| {gap:.3e} (limit {MESH_MATCH_TOL:.0e})")
+    if not 0 <= hs["mle"] < TRUTH_HS_LIMIT:
+        raise AssertionError(f"{n}-qubit sharded MLE hs to the truth {hs['mle']}")
+    if not gap <= MESH_MATCH_TOL:
+        raise AssertionError(f"the sharded and single-device {n}-qubit MLE differ by {gap}")
+
+
+def _mesh_chain_rows(card, tmg, est):
+    """Phase 12, part (c): the state chains on phase 3's experiment and the
+    anchored kraus chains of a 1-qubit channel, with a mesh and without."""
+    import warnings
+
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+
+    mesh = _mesh(MESH_SHARDS)
+    tmg.reconstructed_state = est
+    levels = np.linspace(0.1, 0.9, 5)
+
+    def state(**kw):
+        return qtt.MHMCStateInterval(tmg, adapt_step=True, key=41, **MESH_STATE_CHAINS, **kw)
+
+    channel = qtt.ProcessTomograph(qtt.depolarizing(0.2, 1), key=3)  # default device, float32
+    channel.experiment(1000, "proj-set")
+    channel.point_estimate("lifp")
+
+    def kraus(key, **kw):
+        return qtt.MHMCProcessInterval(channel, step=0.05, parametrization="kraus",
+                                       adapt_step=True, key=key, **MESH_KRAUS_CHAINS, **kw)
+
+    rows = (
+        (f"MHMCStateInterval on GHZ-{N_QUBITS}", state, state, levels, MESH_STATE_REL),
+        ("anchored kraus chains, depolarizing(0.2, 1)", lambda **kw: kraus(21, **kw),
+         lambda **kw: kraus(22, **kw), np.linspace(0.1, 0.9, 9), MESH_KRAUS_REL),
+    )
+    for what, sharded, local, cl, rel_limit in rows:
+        out = {}
+        for name, build in (("mesh", lambda: sharded(mesh=mesh)), ("local", local)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # short-chain R-hat
+                iv = build()
+                dist, _ = iv(cl)
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0, np.asarray(dist), iv)
+        (s_mesh, d_mesh, iv_mesh), (s_local, d_local, _) = out["mesh"], out["local"]
+        if what.startswith("MHMC"):
+            rel = float(np.max(np.abs(d_mesh - d_local) / d_local))
+        else:
+            m, m_v = float(np.median(d_mesh)), float(np.median(d_local))
+            rel = abs(m - m_v) / max(m, m_v)
+        log(f"    (c) {what}, {iv_mesh.n_chains} chains over {MESH_SHARDS} shards: "
+            f"{s_mesh:.3f} s (local {s_local:.3f} s); acceptance {iv_mesh.acceptance_rate:.4f}; "
+            f"distances {np.round(d_mesh, 6).tolist()} vs local {np.round(d_local, 6).tolist()}; "
+            f"relative gap {rel:.4f} (limit {rel_limit})")
+        if not (np.all(np.isfinite(d_mesh)) and 0 < iv_mesh.acceptance_rate <= 1
+                and rel < rel_limit):
+            raise AssertionError(f"{what}: the mesh chains disagree with the local run")
+
+
+def _mesh_process_and_coverage_rows(card, tmg4):
+    """Phase 12, part (d): phase 8's process bootstrap and phase 9's GHZ-4
+    coverage, over MESH_SHARDS shards and over one."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.parallel import sharded_coverage, sharded_process_bootstrap_distances
+    from quantpy_tpu_torch.parallel.mesh import shard_generators
+    from quantpy_tpu_torch.tomography.polytopes import verification
+
+    k = MESH_SHARDS
+    meshes = {k: _mesh(k), 1: _mesh(1)}
+    center = tmg4.reconstructed_channel
+    t0 = tmg4.tomographs[0]
+    outs = np.stack([center.transform(s).bloch for s in tmg4.input_basis.elements])
+    args = (center.choi.bloch, outs, tmg4._input_blochs_t(), t0.povm_matrix, t0.n_measurements)
+    n_points, iters = MESH_PROCESS
+    medians = {}
+    for size in (k, 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = sharded_process_bootstrap_distances(meshes[size], 13, *args, n_points=n_points,
+                                                cp="ns", cptp_iter=iters).cpu().numpy()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        if d.shape != (n_points,) or not np.all(np.isfinite(d)):
+            raise AssertionError("sharded process bootstrap distances are not finite")
+        medians[size] = float(np.median(d))
+        log(f"    (d) process bootstrap, {tmg4.channel.n_qubits} qubits x "
+            f"{len(tmg4.tomographs)} inputs, {n_points} resamples over {size} shard(s), lifp + "
+            f"{iters} NS-Dykstra iterations: {seconds:.3f} s = {n_points / seconds:.2f} "
+            f"resamples/s, median hs {medians[size]:.4e} on {card}")
+    spread = abs(medians[k] - medians[1]) / medians[1]
+    if not (PROC_MEDIAN_BAND[0] <= medians[k] <= PROC_MEDIAN_BAND[1] and spread <= 0.10):
+        raise AssertionError(f"the sharded process bootstrap medians are off: {medians}")
+
+    n, shots, trials = COVERAGE_QST
+    levels = np.linspace(0.05, 0.99, 18)
+    problem = verification.qst_problem(qtt.GHZ(n), shots)
+    cov = {}
+    for size in (k, 1):
+        t = time.perf_counter()
+        cov[size] = sharded_coverage(meshes[size], 98, problem, levels, trials)
+        seconds = time.perf_counter() - t
+        log(f"    (d) coverage of GHZ({n}), {shots} shots, {trials} trials over {size} shard(s): "
+            f"{seconds:.3f} s = {trials / seconds:.1f} trials/s on {card}")
+    gap = float(np.max(np.abs(cov[k] - cov[1])))
+    # two independent estimates: 0.05, or five standard errors of their
+    # difference where the trials are few
+    gap_limit = max(0.05, 5 * math.sqrt(0.5 / trials))
+    exact = MESH_COVERAGE_EXACT
+    povm, n_meas, blochs, prod, offset, clip_b = problem
+    b = torch.as_tensor(blochs, dtype=torch.float32, device=DEVICE)
+    hits = sum(verification.coverage_hits(g, povm, n_meas, b, prod, offset, levels, exact // k,
+                                          clip_b)
+               for g in shard_generators(meshes[k], 7))
+    equal = np.array_equal(sharded_coverage(meshes[k], 7, problem, levels, exact), hits / exact)
+    log(f"      coverage {np.round(cov[k], 4).tolist()}; {k} vs 1 shard max |diff| {gap:.4f} "
+        f"(limit {gap_limit:.3f}); at {exact} trials the hits equal the per-shard "
+        f"coverage_hits: {equal}")
+    if not (np.all(cov[k] >= levels - 0.05) and gap <= gap_limit and equal):
+        raise AssertionError("the sharded coverage is off")
+
+
+def _mesh_example_row(card, tally):
+    """Phase 12, part (e): quantpy_tpu_torch.examples.multichip on the card,
+    counted, then rerun under the device audit."""
+    import io
+
+    from quantpy_tpu_torch.examples import multichip
+
+    shards = len(multichip._mesh_devices(torch.device(DEVICE))[0])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, seconds, launched = _counted("multichip.main", lambda: multichip.main(
+            ["--device", DEVICE]), tally, b1=shards * B1_PER_F32_BATCH)
+    for line in buf.getvalue().splitlines():
+        log(f"      | {line}")
+    audit = DeviceAudit()
+    with audit, contextlib.redirect_stdout(None):
+        multichip.main(["--device", DEVICE])
+        torch.cuda.synchronize()
+    log(f"    (e) multichip.main: {seconds:.3f} s, rhor_mle launches {launched} ({shards} "
+        f"shards); audited rerun {audit.n_ops} aten ops, off the card: "
+        f"{sorted(audit.off_device) or 'none'}")
+    if audit.off_device:
+        raise AssertionError(f"multichip: operations off {DEVICE}: {sorted(audit.off_device)}")
+
+
+def phase12_mesh(card, tmg, est, tmg4, rate_ms):
+    """The mesh layer on the card; returns the rhor_mle launches of its
+    counted runs."""
+    log(f"[12] the mesh layer: {MESH_SHARDS} logical shards on one card")
+    t0 = time.perf_counter()
+    tally = [0]
+    _mesh_resample_row(card, tmg, est, rate_ms, tally)
+    t1 = time.perf_counter()
+    _mesh_operator_checks()
+    for n in MESH_KRON:
+        try:
+            _mesh_operator_row(card, n)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if n == MESH_KRON[-1]:
+                raise
+            log(f"    (b) {n} qubits do not fit on {card}: {str(e).splitlines()[0]}; the row "
+                f"runs at {MESH_KRON[-1]} qubits")
+            torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _mesh_chain_rows(card, tmg, est)
+    t3 = time.perf_counter()
+    _mesh_process_and_coverage_rows(card, tmg4)
+    t4 = time.perf_counter()
+    _mesh_example_row(card, tally)
+    t5 = time.perf_counter()
+    log(f"    phase 12: {t5 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
+        f"(d) {t4 - t3:.1f}, (e) {t5 - t4:.1f}); rhor_mle launches in its counted runs "
+        f"{tally[0]}, rhor_mle_flat none")
+    return tally[0]
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -2721,6 +3111,7 @@ def main() -> int:
     phase9_intervals(card)
     phase10_mcmc(card, tmg, est, process_tmg)
     launches += phase11_entry_points(card, tmg, process_tmg, rate_ms)
+    launches += phase12_mesh(card, tmg, est, process_tmg, rate_ms)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

@@ -2,10 +2,13 @@
 
 Each kernel is one `.cu` file under `quantpy_tpu_torch/csrc/` with a plain C
 interface. It is compiled at first use with `nvcc` for `sm_90a` into a
-shared library under `quantpy_tpu_torch/_build/` and loaded with `ctypes`.
-The library's name carries a hash of the source and the flags, so an edited
+shared library under `build_dir()` and loaded with `ctypes`: the package's
+own `quantpy_tpu_torch/_build/` where it can be written, else a user cache
+directory (an installed copy the user cannot write to still builds). The
+library's name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. Nothing here runs on
-import.
+import; builds and loads in one process are serialized by a lock, so that
+shards on several devices may reach a kernel first at the same time.
 """
 
 from __future__ import annotations
@@ -15,10 +18,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "build", "build_dir", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 #: seconds and compiler output of the builds made in this process, by name
 build_log: dict[str, tuple[float, str]] = {}
@@ -50,15 +55,49 @@ def nvcc_path() -> str:
     return found
 
 
+def _writable(path: Path) -> bool:
+    """Whether `path`, or the nearest of its ancestors that exists, is a
+    directory this process may write. A directory without any write
+    permission bit counts as read-only even for root, who could write it:
+    a read-only installation is left as it is."""
+    while not path.exists():
+        path = path.parent
+    return (
+        path.is_dir()
+        and os.access(path, os.W_OK)
+        and bool(path.stat().st_mode & 0o222)
+    )
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built into: BUILD_DIR
+    (quantpy_tpu_torch/_build/) when it can be written, else
+    $XDG_CACHE_HOME/quantpy_tpu_torch (by default
+    ~/.cache/quantpy_tpu_torch). Raises RuntimeError when neither can."""
+    cache_home = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache"
+    )
+    candidates = [BUILD_DIR, Path(cache_home) / "quantpy_tpu_torch"]
+    for d in candidates:
+        if _writable(d):
+            return d
+    raise RuntimeError(
+        "no writable directory for the CUDA kernels' libraries: tried "
+        + " and ".join(str(d) for d in candidates)
+        + "; make one writable or set XDG_CACHE_HOME"
+    )
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into _build/ unless an up-to-date library is
-    there; return the library's path."""
+    """Compile csrc/<name>.cu into `build_dir()` unless an up-to-date
+    library is there; return the library's path."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    out_dir = build_dir()
+    lib = out_dir / f"lib{name}-{digest[:12]}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
@@ -75,6 +114,7 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]

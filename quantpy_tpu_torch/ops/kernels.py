@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -399,7 +400,7 @@ def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
         return rhor_mle_reference(freq, bloch0, w2, n_iter)
     k, d2 = w2.shape
     out = _launch("rhor_mle", freq, bloch0, _lane_operands(w2, n), d, n_iter, k + 7 * d2)
-    rhor_mle.launches += 1
+    _count_launch(rhor_mle)
     return out
 
 
@@ -418,10 +419,18 @@ def rhor_mle_flat(freq, bloch0, w2, n_iter: int = 60):
     k, d2 = w2.shape
     operands = _flat_fold_operands(w2, n)
     out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 7 * d2)
-    rhor_mle_flat.launches += 1
+    _count_launch(rhor_mle_flat)
     return out
 
 
 #: kernel launches since the count was last reset to 0
 rhor_mle.launches = 0
 rhor_mle_flat.launches = 0
+_launch_lock = threading.Lock()
+
+
+def _count_launch(wrapper):
+    """Add one to `wrapper.launches`; the mesh's shards on several devices
+    launch from worker threads."""
+    with _launch_lock:
+        wrapper.launches += 1

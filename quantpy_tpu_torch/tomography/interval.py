@@ -776,11 +776,6 @@ class BootstrapProcessInterval(ConfidenceInterval):
 #: flags only decisively unmixed chains)
 RHAT_WARN_THRESHOLD = 1.2
 
-_MESH_MESSAGE = (
-    "mesh-sharded MHMC chains wait for the port of parallel/mesh.py (ROADMAP A15); "
-    "run the chains side by side on one device with n_chains instead"
-)
-
 #: the CPTP projection inside a process proposal or target reads its stop
 #: criterion every this many Dykstra iterations: at most 10 host reads per
 #: 100-iteration projection, against 100 when it is read after every one. A
@@ -823,6 +818,13 @@ def _draw_chains(chain, n_points, n_chains, thinning, verbose):
     return samples, rate, (1, samples.shape[0])
 
 
+def _require_symmetric(chain):
+    """The mesh-sharded chains run the plain Metropolis ratio: refuse a
+    proposal that needs the Hastings correction."""
+    if chain.jump_logpdf is not None:
+        raise NotImplementedError("mesh-sharded chains support symmetric proposals only")
+
+
 def _finite_distances(dist, what):
     dist = np.asarray(dist, dtype=np.float64)
     if not np.all(np.isfinite(dist)):
@@ -844,7 +846,11 @@ class MHMCStateInterval(ConfidenceInterval):
     the distance series. `jump_distr` selects the proposal (see `MHMC`); an
     asymmetric one needs `jump_logpdf` (callable(delta (..., dim)) ->
     (...)). `key` is an int seed or a torch.Generator on the tomograph's
-    device (default seed 0). `mesh` is not ported (ROADMAP A15) and raises.
+    device (default seed 0). `mesh` (a `parallel.Mesh`) shards the chains
+    of an `n_chains > 1` run over its devices (`sharded_mhmc_state_chains`;
+    dense designs and symmetric proposals only); `adapt_step` still tunes
+    the proposal locally first, and the shards' generators are seeded from
+    one draw of the chain's.
     """
 
     def __init__(
@@ -878,8 +884,6 @@ class MHMCStateInterval(ConfidenceInterval):
     def setup(self):
         if self.mode == Mode.CHANNEL:
             raise NotImplementedError("This interval works only for state tomography")
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_MESSAGE)
         tmg = self.tmg
         if not self.use_new_estimate:
             self.state = tmg.reconstructed_state
@@ -905,9 +909,26 @@ class MHMCStateInterval(ConfidenceInterval):
             )
             if self.adapt_step:
                 self.chain.adapt_step()
-        samples, self.acceptance_rate, chain_shape = _draw_chains(
-            self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
-        )
+        if self.n_chains > 1 and self.mesh is not None:
+            if tmg.povm_matrix is None:
+                raise NotImplementedError("mesh-sharded MHMC chains need a dense design")
+            _require_symmetric(self.chain)
+            from ..parallel import sharded_mhmc_state_chains
+
+            per_chain = -(-self.n_points // self.n_chains)
+            freq, povm_w = tmg._nll_operands()
+            scale = 1.0 if self.temper else float(np.sum(tmg.n_measurements))
+            samples, self.acceptance_rate = sharded_mhmc_state_chains(
+                self.mesh, self.chain.generator, self.chain.x_t, povm_w, freq, n, scale,
+                self.chain.step, self.n_chains, per_chain, burn_steps=self.burn_steps,
+                thinning=self.thinning, jump_distr=self.chain.jump_fn,
+            )
+            chain_shape = samples.shape[:2]
+            samples = samples.reshape(-1, samples.shape[-1])
+        else:
+            samples, self.acceptance_rate, chain_shape = _draw_chains(
+                self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
+            )
         dst_name = _DST_NAMES.get(tmg.dst)
         if dst_name is not None:
             dist = bootstrap_core.tril_samples_distance(
@@ -983,8 +1004,12 @@ class MHMCProcessInterval(ConfidenceInterval):
     docs/benchmarks.md): use `BootstrapProcessInterval` there; the R-hat
     warning fires when chains move but do not mix (a chain that accepts
     nothing reads R-hat 1.0). `key` is an int seed or a torch.Generator on
-    the tomograph's device (default seed 0). `mesh` is not ported (ROADMAP
-    A15) and raises.
+    the tomograph's device (default seed 0). `mesh` (a `parallel.Mesh`)
+    shards the chains of an `n_chains > 1` random-walk run over its devices:
+    the 1-3 qubit 'bloch' chains (`sharded_mhmc_process_chains`) and the
+    anchored 'kraus' chains (`sharded_mhmc_kraus_chains`); MALA, asymmetric
+    proposals, non-anchored kraus targets and the projected-target 'bloch'
+    chains raise.
     """
 
     #: from this qubit count on, 'bloch' samples the projected-likelihood target
@@ -1121,17 +1146,19 @@ class MHMCProcessInterval(ConfidenceInterval):
                     dzf, b_dev, w_dev, counts64, pack_t, p_ref
                 )
 
-            return pack, x_ref_b, anchored_target
+            return pack, x_ref_b, anchored_target, p_ref
 
         z_ref = y0[0] + 1j * y0[1]
-        pack, x_ref_b, target = make_anchor(z_ref)
+        pack, x_ref_b, target, p_ref = make_anchor(z_ref)
         rms_ref = float(np.sqrt(np.mean(y0**2))) or 1.0
         x_init = np.zeros(2 * d_choi * d_choi)
         if seek > 0:
             dz = maximize_logpdf(target, tmg._tensor(x_init), seek, lr=3e-3 * rms_ref)
             dz = dz.cpu().numpy().astype(np.float64).reshape(2, d_choi, d_choi)
-            pack, x_ref_b, target = make_anchor(z_ref + dz[0] + 1j * dz[1])
+            pack, x_ref_b, target, p_ref = make_anchor(z_ref + dz[0] + 1j * dz[1])
         self._kraus_anchor = (pack, x_ref_b)
+        # the operands of the mesh-sharded chains (`sharded_mhmc_kraus_chains`)
+        self._kraus_sharded_ctx = (pack, b_dev, w_dev, counts64, p_ref, scale)
         if self.curv_probes:
             h_diag = _hutchinson_diagonal(
                 target, x_init.shape[0], int(self.curv_probes), tmg.dtype, tmg.device
@@ -1210,7 +1237,7 @@ class MHMCProcessInterval(ConfidenceInterval):
     def _build_chain(self):
         tmg = self.tmg
         big = tmg.channel.n_qubits >= self.PROJECTED_TARGET_QUBITS
-        self._to_x = self._decode_kraus = self._proj = None
+        self._to_x = self._decode_kraus = self._proj = self._kraus_sharded_ctx = None
         x_init = np.asarray(self.channel.choi.bloch, dtype=np.float64)
         scale = (
             1.0 / float(sum(np.sum(t.n_measurements) for t in tmg.tomographs))
@@ -1302,11 +1329,58 @@ class MHMCProcessInterval(ConfidenceInterval):
             ).cpu().numpy().astype(np.float64)
         return np.asarray(samples, dtype=np.float64)
 
+    def _sharded_chains(self):
+        """The chains of an `n_chains > 1` run over `mesh`, with the
+        rejections of the JAX package; returns what `_draw_chains` does."""
+        from ..parallel import sharded_mhmc_kraus_chains, sharded_mhmc_process_chains
+
+        _require_symmetric(self.chain)
+        if self.proposal == "mala":
+            raise NotImplementedError(
+                "mesh-sharded chains run the random-walk proposal; MALA chains "
+                "run side by side with n_chains alone"
+            )
+        chain = self.chain
+        per_chain = -(-self.n_points // self.n_chains)
+        common = dict(
+            burn_steps=self.burn_steps, thinning=self.thinning, jump_distr=chain.jump_fn
+        )
+        if self.parametrization == "kraus":
+            if not self.anchored:
+                raise NotImplementedError(
+                    "mesh-sharded kraus chains run the anchored-delta target "
+                    "(anchored=True); the full-decode target runs side by side "
+                    "with n_chains alone"
+                )
+            pack, b, w, counts, p_ref, scale = self._kraus_sharded_ctx
+            samples, rate = sharded_mhmc_kraus_chains(
+                self.mesh, chain.generator, chain.x_t, pack, b, w, counts, p_ref, scale,
+                chain.step, self.n_chains, per_chain, u_scale=self._kraus_uscale, **common,
+            )
+        elif self.tmg.channel.n_qubits >= self.PROJECTED_TARGET_QUBITS:
+            raise NotImplementedError(
+                "mesh-sharded bloch chains implement the project-the-proposal "
+                f"scheme, which freezes at >= {self.PROJECTED_TARGET_QUBITS} qubits; "
+                "use parametrization='kraus' (anchored, mesh-shardable) or "
+                "n_chains without a mesh there"
+            )
+        else:
+            b, _, flat = self._design_arrays()
+            t0 = self.tmg.tomographs[0]
+            temper = (
+                1.0 / float(sum(np.sum(t.n_measurements) for t in self.tmg.tomographs))
+                if self.temper
+                else 1.0
+            )
+            samples, rate = sharded_mhmc_process_chains(
+                self.mesh, chain.generator, chain.x_t, b, t0.povm_matrix, t0.n_measurements,
+                flat, chain.step, self.n_chains, per_chain, scale=temper, **common,
+            )
+        return samples.reshape(-1, samples.shape[-1]), rate, samples.shape[:2]
+
     def setup(self):
         if self.mode == Mode.STATE:
             raise NotImplementedError("This interval works only for process tomography")
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_MESSAGE)
         tmg = self.tmg
         if not self.use_new_estimate:
             self.channel = tmg.reconstructed_channel
@@ -1319,9 +1393,12 @@ class MHMCProcessInterval(ConfidenceInterval):
             )
         if not (self.warm_start and hasattr(self, "chain")):
             self._build_chain()
-        samples, self.acceptance_rate, chain_shape = _draw_chains(
-            self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
-        )
+        if self.n_chains > 1 and self.mesh is not None:
+            samples, self.acceptance_rate, chain_shape = self._sharded_chains()
+        else:
+            samples, self.acceptance_rate, chain_shape = _draw_chains(
+                self.chain, self.n_points, self.n_chains, self.thinning, self.verbose
+            )
         samples = self._decode(samples)
         n2 = 2 * tmg.channel.n_qubits
         dst_name = _DST_NAMES.get(tmg.dst)

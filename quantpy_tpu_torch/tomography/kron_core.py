@@ -89,8 +89,15 @@ def _forward(povm1, n_qubits: int, bloch):
     """(kron povm1) bloch as (Z, M, P) for bloch (..., 4^n), Z the flattened
     batch."""
     groups, factors = _grouped_factors(povm1, n_qubits)
-    k = len(groups)
-    x = bloch.reshape((-1,) + tuple(4**g for g in groups))
+    return _forward_chain(factors, bloch.reshape((-1,) + tuple(4**g for g in groups)))
+
+
+def _forward_chain(factors, x):
+    """The forward chain through the per-group `factors` for x (Z, d_1, ..,
+    d_k): (Z, M, P) with M = prod m_j, P = prod p_j. A factor may hold a
+    slice of its outcomes p_j (the operator-sharded forward of
+    `parallel.mesh`)."""
+    k = len(factors)
     for f in factors:
         # (Z, d_j, .., d_k, m_1, p_1, .., m_{j-1}, p_{j-1}) -> d_j contracted,
         # (m_j, p_j) appended
@@ -102,7 +109,13 @@ def _forward(povm1, n_qubits: int, bloch):
 
 def _adjoint(povm1, n_qubits: int, c):
     """(kron povm1)^T c as (Z, 4^n) for c (..., M, P)."""
-    groups, factors = _grouped_factors(povm1, n_qubits)
+    _, factors = _grouped_factors(povm1, n_qubits)
+    return _adjoint_chain(factors, c)
+
+
+def _adjoint_chain(factors, c):
+    """The adjoint chain through the per-group `factors` for c (..., M, P)
+    in the factors' outcome sizes: (Z, 4^n)."""
     x = c.reshape(
         (-1,) + tuple(f.shape[0] for f in factors) + tuple(f.shape[1] for f in factors)
     )
@@ -221,14 +234,22 @@ def kron_estimate_lin(counts, povm1, n_qubits: int, physical: bool = True):
     counts is formed. counts (..., m1^n, p1^n); returns (..., 4^n)."""
     counts = as_real(counts)
     povm1 = as_real(povm1, like=counts)
-    m_total = counts.shape[-2]
     rhs = _adjoint(povm1, n_qubits, _frequencies(counts))
+    return _lin_from_rhs(rhs, povm1, n_qubits, counts.shape[-2], physical).reshape(
+        tuple(counts.shape[:-2]) + (4**n_qubits,)
+    )
+
+
+def _lin_from_rhs(rhs, povm1, n_qubits: int, m_total: int, physical: bool):
+    """Linear inversion from the adjoint of the frequencies, rhs (Z, 4^n):
+    the inverse Gram factors per group, then the feasibility projection if
+    `physical`."""
     groups = group_sizes(n_qubits)
     x = rhs.reshape((-1,) + tuple(4**g for g in groups))
     for g_inv in _grouped_gram_inv(povm1, groups):
         x = torch.tensordot(x, g_inv, dims=([1], [0]))
     # undo the uniform weighting: A_w = A / M in the Gram (1/M^2) and rhs (1/M)
-    bloch = x.reshape(tuple(counts.shape[:-2]) + (4**n_qubits,)) * m_total / (2**n_qubits)
+    bloch = x.reshape(rhs.shape) * m_total / (2**n_qubits)
     if physical:
         bloch = make_feasible_bloch(bloch, n_qubits)
     return bloch

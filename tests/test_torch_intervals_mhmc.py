@@ -24,6 +24,7 @@ from quantpy_tpu.tomography import interval as jinterval  # noqa: E402
 
 import quantpy_tpu_torch as qtt  # noqa: E402
 from quantpy_tpu_torch import interop, metrics  # noqa: E402
+from quantpy_tpu_torch.parallel import make_mesh  # noqa: E402
 from quantpy_tpu_torch.tomography import bootstrap_core, interval  # noqa: E402
 
 from ._torch_cpu import on_cpu  # noqa: E402, F401
@@ -233,9 +234,14 @@ def test_wrong_mode_and_mesh_raise(jax_state, jax_process):
     for iv in (qtt.MHMCStateInterval(process), qtt.MHMCProcessInterval(state)):
         with pytest.raises(NotImplementedError):
             iv.setup()
-    for iv in (qtt.MHMCStateInterval(state, mesh=object(), n_chains=2),
-               qtt.MHMCProcessInterval(process, mesh=object(), n_chains=2)):
-        with pytest.raises(NotImplementedError, match="A15"):
+    # the mesh path keeps the JAX package's rejections (more in
+    # tests/test_torch_parallel.py)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    asymmetric = dict(mesh=mesh, n_chains=2, n_points=4, burn_steps=2,
+                      jump_logpdf=lambda d: -(d**2).sum(-1))
+    for iv in (qtt.MHMCStateInterval(state, **asymmetric),
+               qtt.MHMCProcessInterval(process, **asymmetric)):
+        with pytest.raises(NotImplementedError, match="symmetric"):
             iv.setup()
     with pytest.raises(ValueError):
         qtt.MHMCProcessInterval(process, parametrization="choi")

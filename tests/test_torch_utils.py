@@ -158,11 +158,14 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
 
 def test_package_exports_match_the_jax_package():
     """Every name of `quantpy_tpu.__all__` is exported by the port, modules
-    as the port's own modules; the mesh layer, `parallel`, is not ported."""
-    names = [name for name in qt.__all__ if name != "parallel"]
-    missing = [name for name in names if name not in qtt.__all__ or not hasattr(qtt, name)]
+    as the port's own modules; the mesh layer, `parallel`, is a subpackage
+    of both with the same names."""
+    import quantpy_tpu.parallel
+    import quantpy_tpu_torch.parallel
+
+    missing = [name for name in qt.__all__ if name not in qtt.__all__ or not hasattr(qtt, name)]
     assert not missing
-    assert not hasattr(qtt, "parallel")
+    assert sorted(quantpy_tpu_torch.parallel.__all__) == sorted(quantpy_tpu.parallel.__all__)
     for name in ("geometry", "measurements", "ops", "basis", "stats", "mhmc"):
         assert getattr(qtt, name).__name__ == f"quantpy_tpu_torch.{name}"
 

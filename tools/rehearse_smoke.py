@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6 to 11 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6 to 12 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 67891011] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 6789101112] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -15,7 +15,9 @@ steps (its GHZ-4 and 4-qubit experiments become GHZ(2) and a 2-qubit
 channel), and phase 11's records to GHZ(2), a kron GHZ(3) and that 2-qubit
 channel, with small bootstraps and polytopes, the resumable bootstrap to
 48 points in chunks of 16, and the examples to 1-3 qubits (no launch is
-expected: the CPU has no kernel). What it prints are
+expected: the CPU has no kernel), and phase 12's mesh to 4 CPU shards,
+1,024 resamples in (a), 6 qubits in (b) and short chains, process
+bootstraps and coverage runs in (c)-(d). What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -51,7 +53,7 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="67891011", help="which of phases 6-11 to run")
+    parser.add_argument("--phases", default="6789101112", help="which of phases 6-12 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -94,13 +96,20 @@ def main() -> int:
     chip_smoke.EXAMPLE_QUALITY_REPEATS = 4
     chip_smoke.EXAMPLE_POSTERIOR = dict(n_qubits=1, n_shots=500, n_points=20, burn_steps=20,
                                         n_boot=20)
+    chip_smoke.MESH_BOOT_POINTS = 1_024
+    chip_smoke.MESH_KRON = (6,)
+    chip_smoke.MESH_STATE_CHAINS = dict(n_points=160, burn_steps=100, n_chains=8)
+    chip_smoke.MESH_KRAUS_CHAINS = dict(n_points=80, burn_steps=60, n_chains=8, mode_seek=50,
+                                        curv_probes=4)
+    chip_smoke.MESH_PROCESS = (32, 50)
+    chip_smoke.MESH_COVERAGE_EXACT = 200
     chip_smoke.device_busy_ms = lambda fn: (fn(), 0.0)[1]
     qtt.MHMCProcessInterval.PROJECTED_TARGET_QUBITS = 2  # the projected row at 2 qubits
-    qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000  # 2 qubits dense, 3 in kron mode
     torch.cuda.Event = _HostEvent
     torch.cuda.synchronize = lambda *_: None
     torch.cuda.reset_peak_memory_stats = lambda *_: None
     torch.cuda.max_memory_allocated = lambda *_: 0
+    torch.cuda.empty_cache = lambda *_: None
     chip_smoke.log_idle_share = lambda *_: None
 
     evaluations = 0
@@ -113,7 +122,7 @@ def main() -> int:
 
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
-    phases = args.phases.replace("11", "Y").replace("10", "X")
+    phases = args.phases.replace("12", "Z").replace("11", "Y").replace("10", "X")
     if "6" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase6_cholesky_mle(card)
@@ -127,6 +136,9 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase8_process(card)
         print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
+    # from phase 9 on, 2 qubits dense and 3 in kron mode (phase 6's GHZ-4
+    # stays dense)
+    qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000
     if "9" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase9_intervals(card)
@@ -145,6 +157,10 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase11_entry_points(card, tmg, tmg4, float("nan"))
         print(f"phase 11: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "Z" in phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase12_mesh(card, tmg, est, tmg4, float("nan"))
+        print(f"phase 12: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

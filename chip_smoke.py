@@ -128,6 +128,19 @@ non-zero exit code, and nothing falls back to the CPU:
    hits equal to the per-shard coverage_hits; (e)
    quantpy_tpu_torch.examples.multichip, counted, then audited for
    devices.
+13. The port's benchmark and entry points: (a)
+   `quantpy_tpu_torch.bench.main` in-process at full width, its stderr
+   shown and its JSON line printed and checked: every extras key,
+   `skipped` empty, `value` within BENCH_RATE_REL of phase 4's rate,
+   `mfu_f32_pct` equal to 1.353 TFLOP over the best call and the card's
+   FP32 peak, the 6-11 qubit MLE rows within TRUTH_HS_LIMIT of the truth,
+   and the rhor_mle and rhor_mle_flat launches equal to those its code
+   implies; (b) `quantpy_tpu_torch.entry.entry()`'s flagship round (256
+   resamples, RrhoR-100: one rhor_mle launch); (c)
+   `entry.dryrun_multichip` over MESH_SHARDS logical shards of the card
+   under the device audit, with its rhor_mle launches. Each counted run
+   resets the kernels' counts before it and reads them after; phases 3, 5,
+   8, 11, 12 and 13's counted launches make the kernels line's counts.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -298,6 +311,19 @@ MESH_STATE_REL = 0.3  # the tolerances of tests/test_parallel.py
 MESH_KRAUS_REL = 0.7
 MESH_PROCESS = (256, 50)  # resamples, NS-Dykstra iterations
 MESH_COVERAGE_EXACT = 1_000
+# phase 13: the port's benchmark and entry points. The bench's extras
+# are bench.py's keys (bench.py:181-187, 200, 214, 268, 294, 306, 324, 353)
+# less mfu_exposed_pct, and the twin's own four.
+BENCH_KEYS = (
+    "mfu_f32_pct", "tflops", "mle_iters", "n_points", "state_lin_6q_ms",
+    "state_boot_6q_mle_rec_s", "state_scaling_kron", "state_boot_10q_mle_rec_s",
+    "kernel_lane_rec_s", "kernel_flat_rec_s", "process_boot_4q_rec_s",
+    "skipped", "times_ms", "spread", "device",
+)
+BENCH_RATE_REL = 0.15  # the bench's value against phase 4's rate of the same call
+# mfu_f32_pct is rounded to 0.1 and the call times to 1 us
+BENCH_MFU_ROUNDING = 0.05 + 1e-3
+ENTRY_POINTS = 256  # resamples of entry()'s bootstrap round
 
 
 def log(msg: str) -> None:
@@ -696,20 +722,6 @@ def phase4_rate(card, tmg, est):
     return ms
 
 
-@contextlib.contextmanager
-def flat_kernel_on_main_path():
-    """Swap kernels.rhor_mle for kernels.rhor_mle_flat for one block (as
-    bench.py swaps the JAX kernels); yields the lane kernel's wrapper."""
-    from quantpy_tpu_torch.ops import kernels
-
-    lane = kernels.rhor_mle
-    kernels.rhor_mle = kernels.rhor_mle_flat
-    try:
-        yield lane
-    finally:
-        kernels.rhor_mle = lane
-
-
 def _fixed_draw_hs(tmg, est, seed):
     """hs distances to `est` of one fixed draw of N_POINTS resamples,
     estimated by RrhoR-60 through kernels.rhor_mle (the lane kernel, or the
@@ -740,6 +752,7 @@ def _fixed_draw_hs(tmg, est, seed):
 def phase5_flat_path(card, tmg, est):
     import numpy as np
 
+    from quantpy_tpu_torch.bench import flat_kernel_on_main_path
     from quantpy_tpu_torch.ops import kernels
     from quantpy_tpu_torch.tomography import bootstrap_core
 
@@ -3095,6 +3108,154 @@ def phase12_mesh(card, tmg, est, tmg4, rate_ms):
     return tally[0]
 
 
+# -- phase 13: the port's benchmark and entry points ------------------------
+
+
+def _bench_row(card, rate_ms):
+    """Phase 13, part (a): quantpy_tpu_torch.bench.main in-process at full
+    width, its JSON line checked; returns its (rhor_mle, rhor_mle_flat)
+    launches."""
+    import io
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch import bench
+    from quantpy_tpu_torch.ops import kernels
+
+    out, err = io.StringIO(), io.StringIO()
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = bench.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    for line in err.getvalue().splitlines():
+        log(f"      | {line}")
+    last = out.getvalue().splitlines()[-1]
+    log(f"    (a) the bench's JSON line: {last}")
+    line = json.loads(last)
+    extras = line["extras"]
+    missing = sorted(set(BENCH_KEYS) - set(extras))
+    if line != result or missing or set(line) != {"metric", "value", "unit", "vs_baseline",
+                                                  "extras"}:
+        raise AssertionError(f"the bench's line is malformed; extras missing {missing}")
+    if extras["skipped"]:
+        raise AssertionError(f"the bench skipped sections: {extras['skipped']}")
+
+    phase4 = N_POINTS / rate_ms * 1e3
+    rel = abs(line["value"] - phase4) / phase4
+    log(f"    (a) bench.main: {seconds:.1f} s; value {line['value']} resamples/s against phase "
+        f"4's {phase4:.1f} (off by {rel:.3f}, limit {BENCH_RATE_REL}); times "
+        f"{extras['times_ms']['value']} ms, spread {extras['spread']['value']} on {card}")
+    if not rel <= BENCH_RATE_REL:
+        raise AssertionError(f"the bench's value is {rel:.3f} off phase 4's rate")
+
+    design = (bench.N_QUBITS,) + qtt.generate_measurement_matrix("proj-set",
+                                                                 bench.N_QUBITS).shape[:2]
+    macs = bench.macs_per_resample_iteration(*design)
+    flop = bench.flops_per_resample(*design, bench.MLE_ITERS) * bench.N_POINTS
+    peak = bench.fp32_peak_tflops(torch.device(DEVICE))
+    want = bench.fp32_share_pct(flop, min(extras["times_ms"]["value"]), peak)
+    log(f"    (a) {macs} MACs per resample-iteration, {flop / 1e12:.4f} TFLOP per call; FP32 "
+        f"peak {peak:.3f} TFLOP/s; mfu_f32_pct {extras['mfu_f32_pct']} against {want:.4f}")
+    if design == (4, 81, 16) and macs != 688_128:
+        raise AssertionError(f"the bench counts {macs} MACs per resample-iteration")
+    if not (abs(extras["mfu_f32_pct"] - want) <= BENCH_MFU_ROUNDING
+            and extras["mfu_f32_pct"] <= 100):
+        raise AssertionError(f"mfu_f32_pct {extras['mfu_f32_pct']} is not {want}")
+    for n, row in extras["state_scaling_kron"].items():
+        if int(n) >= 6 and not row["mle_hs"] < TRUTH_HS_LIMIT:
+            raise AssertionError(f"the bench's {n}-qubit MLE is {row['mle_hs']} from the truth")
+
+    # one launch per f32 'mle-rhor' batch: the headline's build-and-first
+    # call and its timed calls, and each kernel variant's timed calls (the
+    # flat one after its own build-and-first call); the point estimate runs
+    # the plain loop, and the kron 'mle' and process rows launch neither
+    want = (B1_PER_F32_BATCH * (1 + bench.HEADLINE_REPS + bench.VARIANT_REPS),
+            B1_PER_F32_BATCH * (1 + bench.VARIANT_REPS))
+    log(f"    (a) rhor_mle / rhor_mle_flat launches {launched}, the bench's code implies {want}")
+    if launched != want:
+        raise AssertionError(f"the bench launched {launched}, expected {want}")
+    return launched
+
+
+def _entry_row(card):
+    """Phase 13, part (b): entry()'s flagship bootstrap round on the card;
+    returns its rhor_mle launches."""
+    import numpy as np
+
+    from quantpy_tpu_torch import entry
+    from quantpy_tpu_torch.ops import kernels
+
+    fn, args = entry.entry(device=DEVICE)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    if d.device.type != DEVICE:
+        raise AssertionError(f"entry()'s distances are on {d.device}")
+    median = _check_distances(d.cpu().numpy(), ENTRY_POINTS, "entry()")
+    log(f"    (b) entry(): fn(*args) {seconds:.3f} s, {ENTRY_POINTS} distances, median "
+        f"{median:.4e}, finite {bool(np.isfinite(d.cpu().numpy()).all())}; rhor_mle / "
+        f"rhor_mle_flat launches {launched} on {card}")
+    if launched != (B1_PER_F32_BATCH, 0):
+        raise AssertionError(f"entry()'s round launched {launched}")
+    return launched[0]
+
+
+def _dryrun_row(card):
+    """Phase 13, part (c): dryrun_multichip over MESH_SHARDS logical shards
+    of the card under the device audit; returns its rhor_mle launches."""
+    import io
+
+    from quantpy_tpu_torch import entry
+    from quantpy_tpu_torch.ops import kernels
+
+    buf = io.StringIO()
+    audit = DeviceAudit()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with audit, contextlib.redirect_stdout(buf):
+        entry.dryrun_multichip(MESH_SHARDS, devices=[torch.device(DEVICE, 0)] * MESH_SHARDS)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    for line in buf.getvalue().splitlines():
+        log(f"      | {line}")
+    # the state bootstrap's shards and its single-device twin, one f32
+    # 'mle-rhor' batch each; no other stage reaches a kernel
+    want = (B1_PER_F32_BATCH * (MESH_SHARDS + 1), 0)
+    log(f"    (c) dryrun_multichip({MESH_SHARDS}) on {card}: {seconds:.1f} s under the audit "
+        f"({audit.n_ops} aten ops, off the card: {sorted(audit.off_device) or 'none'}); "
+        f"rhor_mle / rhor_mle_flat launches {launched} (expected {want})")
+    if audit.off_device:
+        raise AssertionError(f"the dry run ran operations off the card: {sorted(audit.off_device)}")
+    if launched != want:
+        raise AssertionError(f"the dry run launched {launched}, expected {want}")
+    return launched[0]
+
+
+def phase13_bench_and_entry(card, rate_ms):
+    """The port's benchmark and entry points on the card; returns
+    the (rhor_mle, rhor_mle_flat) launches of its counted runs."""
+    log("[13] the port's benchmark (quantpy_tpu_torch.bench) and entry points "
+        "(quantpy_tpu_torch.entry)")
+    t0 = time.perf_counter()
+    b1, b2 = _bench_row(card, rate_ms)
+    t1 = time.perf_counter()
+    b1 += _entry_row(card)
+    t2 = time.perf_counter()
+    b1 += _dryrun_row(card)
+    t3 = time.perf_counter()
+    log(f"    phase 13: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}); "
+        f"launches in its counted runs: rhor_mle {b1}, rhor_mle_flat {b2}")
+    return b1, b2
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -3112,6 +3273,9 @@ def main() -> int:
     phase10_mcmc(card, tmg, est, process_tmg)
     launches += phase11_entry_points(card, tmg, process_tmg, rate_ms)
     launches += phase12_mesh(card, tmg, est, process_tmg, rate_ms)
+    bench_b1, bench_b2 = phase13_bench_and_entry(card, rate_ms)
+    launches += bench_b1
+    flat_launches += bench_b2
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

@@ -631,3 +631,25 @@ def test_stage_timer_synchronizes_the_card(cuda):
         end.record()
     assert end.query()  # the stage waited for the card
     assert timer.stages["matmuls"] >= 0.9 * start.elapsed_time(end) / 1e3
+
+
+def test_bench_headline_launches_the_lane_kernel_once_per_call(cuda, monkeypatch):
+    """The benchmark's headline call at 1,024 resamples hands B1 one batch
+    and leaves finite distances on the card; its timed section launches it
+    once more per call."""
+    import numpy as np
+
+    from quantpy_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "N_POINTS", 1024)
+    run, design = bench.flagship_call(cuda, "test")
+    assert design == (81, 16)
+    before = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+    d = run()
+    torch.cuda.synchronize()
+    assert (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches) == (
+        before[0] + 1, before[1])
+    assert d.device.type == "cuda" and d.shape == (1024,) and bool(torch.isfinite(d).all())
+    times, sample = bench.headline(run, cuda, "test")
+    assert kernels.rhor_mle.launches == before[0] + 2 + bench.HEADLINE_REPS
+    assert len(times) == bench.HEADLINE_REPS and np.isfinite(sample).all()

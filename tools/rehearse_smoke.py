@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6 to 12 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6 to 13 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 6789101112] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 678910111213] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -17,7 +17,10 @@ channel, with small bootstraps and polytopes, the resumable bootstrap to
 48 points in chunks of 16, and the examples to 1-3 qubits (no launch is
 expected: the CPU has no kernel), and phase 12's mesh to 4 CPU shards,
 1,024 resamples in (a), 6 qubits in (b) and short chains, process
-bootstraps and coverage runs in (c)-(d). What it prints are
+bootstraps and coverage runs in (c)-(d), and phase 13's benchmark to a
+2-qubit headline of 64 resamples at 10 iterations with 2-qubit rows (the
+FP32 peak a stand-in of 1 TFLOP/s and its rate not held to phase 4's),
+`entry()` at its full size and the dry run on 4 CPU shards. What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -26,6 +29,7 @@ gradient of the whole batch) phase 6 ran.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 from pathlib import Path
@@ -53,14 +57,14 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="6789101112", help="which of phases 6-12 to run")
+    parser.add_argument("--phases", default="678910111213", help="which of phases 6-13 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
     sys.path.insert(0, str(REPO))
     import chip_smoke
     import quantpy_tpu_torch as qtt
-    from quantpy_tpu_torch import config
+    from quantpy_tpu_torch import bench, config
     from quantpy_tpu_torch.ops import lbfgs
 
     config.set_device("cpu")
@@ -103,6 +107,13 @@ def main() -> int:
                                         curv_probes=4)
     chip_smoke.MESH_PROCESS = (32, 50)
     chip_smoke.MESH_COVERAGE_EXACT = 200
+    chip_smoke.BENCH_RATE_REL = math.inf  # a CPU rate at 2 qubits against none
+    bench.N_QUBITS, bench.N_POINTS, bench.MLE_ITERS = 2, 64, 10
+    bench.SCALING_QUBITS = (2,)
+    bench.STATE_6Q = (2, 8)
+    bench.STATE_10Q = (2, 4)
+    bench.PROCESS_BOOT = (2, 2_000, 8)
+    bench.fp32_peak_tflops = lambda device: 1.0  # the CPU has no card to read
     chip_smoke.device_busy_ms = lambda fn: (fn(), 0.0)[1]
     qtt.MHMCProcessInterval.PROJECTED_TARGET_QUBITS = 2  # the projected row at 2 qubits
     torch.cuda.Event = _HostEvent
@@ -122,7 +133,7 @@ def main() -> int:
 
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
-    phases = args.phases.replace("12", "Z").replace("11", "Y").replace("10", "X")
+    phases = args.phases.replace("13", "W").replace("12", "Z").replace("11", "Y").replace("10", "X")
     if "6" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase6_cholesky_mle(card)
@@ -136,8 +147,9 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase8_process(card)
         print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
-    # from phase 9 on, 2 qubits dense and 3 in kron mode (phase 6's GHZ-4
-    # stays dense)
+    # from phase 9 to 12, 2 qubits dense and 3 in kron mode (phase 6's and
+    # phase 13's GHZ-4 stay dense)
+    dense_max = qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS
     qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000
     if "9" in phases:
         t0 = time.perf_counter()
@@ -161,6 +173,11 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase12_mesh(card, tmg, est, tmg4, float("nan"))
         print(f"phase 12: {time.perf_counter() - t0:.1f} s on the CPU")
+    qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = dense_max
+    if "W" in phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase13_bench_and_entry(card, 1.0)
+        print(f"phase 13: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

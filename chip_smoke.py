@@ -139,8 +139,29 @@ non-zero exit code, and nothing falls back to the CPU:
    resamples, RrhoR-100: one rhor_mle launch); (c)
    `entry.dryrun_multichip` over MESH_SHARDS logical shards of the card
    under the device audit, with its rhor_mle launches. Each counted run
-   resets the kernels' counts before it and reads them after; phases 3, 5,
-   8, 11, 12 and 13's counted launches make the kernels line's counts.
+   resets the kernels' counts before it and reads them after.
+14. The rest of the surface, float32 unless stated: (a) phase 3's 16,384 x
+   81 x 16 flagship counts drawn by the chain sampler
+   (`sample_multinomial(..., method="chain")`) and by the binary split from
+   one set of probabilities, each draw timed (best of 3) with exact row
+   totals, each estimated by estimate_lin and RrhoR-60 (one rhor_mle launch
+   each, counted, under the device audit) and held to phase 3's median
+   band, the two medians within CHAIN_MEDIAN_REL, and B1 held to its plain
+   version on the chain's counts (HS_TOL_F32); (b) GHZ-12, proj-set, 10^4
+   shots: `kron_simulate` and `kron_simulate_chunked` (27 blocks), each
+   timed with its peak memory, exact row totals and per-outcome sums within
+   5 standard errors of each other and of n p, then at 8 qubits the
+   one-block chunked draw equal to `kron_simulate` bit for bit on a
+   reseeded generator; (c) phase 9's 4-qubit channel design through
+   `channel_l2_moments_kron` at state_chunk 64 and 256 on the same 128
+   probes, float64, equal to 1e-10 relative, with each one's time and peak;
+   (d) `estimate_pgdb_factored_host` at 2 qubits in float64 (15 steps from
+   a lifp warm start) against `estimate_pgdb_factored` and against the CPU
+   (1e-10); (e) `ops/df32` and `ops/cplx` on 10^6 float32 numbers: two_sum
+   and two_prod exact against float64, df_div_ff within 2^-40, sum2f within
+   one float32 ulp of the float64 sum, the pair conversions exact. Phases
+   3, 5, 8, 11, 12, 13 and 14's counted launches make the kernels line's
+   counts.
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -324,6 +345,16 @@ BENCH_RATE_REL = 0.15  # the bench's value against phase 4's rate of the same ca
 # mfu_f32_pct is rounded to 0.1 and the call times to 1 us
 BENCH_MFU_ROUNDING = 0.05 + 1e-3
 ENTRY_POINTS = 256  # resamples of entry()'s bootstrap round
+# phase 14: the rest of the surface
+CHAIN_SEED = 1414  # the generator of (a)'s two draws
+CHAIN_MEDIAN_REL = 0.05  # chain-sampled median hs against the binary split's
+SURFACE_KRON = (12, 8)  # qubits of (b)'s fused / chunked draws; of its one-block equality
+SURFACE_CHANNEL = (4, 2_000, (64, 256), 128)  # qubits, shots, state chunks, probes
+SURFACE_CHANNEL_REL = 1e-10  # the two state chunkings, float64, relative
+SURFACE_PGDB = (2, 10_000, 15, 300)  # qubits, shots, pgd iterations, Dykstra iterations
+SURFACE_PGDB_TOL = 1e-10  # host loop against the fused call, and the card against the CPU
+SURFACE_DF32_N = 1_000_000  # random float32 numbers of (e)
+SURFACE_DF32_REL = 2.0**-40  # df_div_ff's (hi, lo) against the float64 quotient
 
 
 def log(msg: str) -> None:
@@ -3167,6 +3198,9 @@ def _bench_row(card, rate_ms):
     for n, row in extras["state_scaling_kron"].items():
         if int(n) >= 6 and not row["mle_hs"] < TRUTH_HS_LIMIT:
             raise AssertionError(f"the bench's {n}-qubit MLE is {row['mle_hs']} from the truth")
+        if int(n) >= bench.SIMULATE_ROW_QUBITS and not {"simulate_s",
+                                                        "simulate_chunked_s"} <= set(row):
+            raise AssertionError(f"the bench's {n}-qubit row lacks a draw's time: {row}")
 
     # one launch per f32 'mle-rhor' batch: the headline's build-and-first
     # call and its timed calls, and each kernel variant's timed calls (the
@@ -3256,6 +3290,302 @@ def phase13_bench_and_entry(card, rate_ms):
     return b1, b2
 
 
+# -- phase 14: the rest of the surface ------------------------------------------
+
+
+def _chain_flagship_row(card, tmg, est):
+    """Phase 14, part (a): the flagship's counts drawn by the chain sampler
+    and by the binary split from one set of probabilities, each estimated
+    through B1 (counted); B1 against its plain version on the chain's
+    counts. Returns the rhor_mle launches of the counted runs."""
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.ops.sampling import sample_multinomial
+    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
+
+    dev, dtype = tmg.device, tmg.dtype
+    n = tmg.state.n_qubits
+    d = 2**n
+    bloch_est = est.bloch_tensor(dev, dtype)
+    povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=dev)
+    n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=dev)
+    probs = state_core.experiment_probabilities(povm, bloch_est.expand(N_POINTS, -1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CHAIN_SEED)
+    methods = ("chain", "binary")
+    counts = {m: sample_multinomial(gen, n_meas, probs, method=m) for m in methods}
+    draw_ms = {m: cuda_ms(lambda m=m: sample_multinomial(gen, n_meas, probs, method=m), 3)
+               for m in methods}
+    log(f"    (a) {N_POINTS} x {tuple(probs.shape[1:])} counts from phase 3's GHZ-{n} "
+        f"estimate, {N_SHOTS} shots per POVM, {dtype}: the chain draw {draw_ms['chain']:.3f} "
+        f"ms ({probs.shape[-1] - 1} binomial passes), the binary split "
+        f"{draw_ms['binary']:.3f} ms ({(probs.shape[-1] - 1).bit_length()} passes), best of 3, "
+        f"ratio {draw_ms['chain'] / draw_ms['binary']:.3f} on {card}")
+    for m, c in counts.items():
+        if c.device.type != DEVICE or c.shape != probs.shape:
+            raise AssertionError(f"the {m} draw is {tuple(c.shape)} on {c.device}")
+        if not bool((c.sum(-1) == n_meas).all()):
+            raise AssertionError(f"the {m} draw's row totals are not exact")
+
+    hs, inits, launches = {}, {}, 0
+    for m, c in counts.items():
+        init = inits[m] = state_core.estimate_lin(c, povm, n_meas)
+        audit = DeviceAudit()
+        _reset_launches()
+        with audit:
+            blochs = state_core.estimate_mle_rhor(c, povm, n_meas, init, max_iter=MLE_ITERS)
+            torch.cuda.synchronize()
+        launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
+        if launched != (B1_PER_F32_BATCH, 0):
+            raise AssertionError(f"estimate_mle_rhor on the {m} counts launched {launched}")
+        if audit.off_device:
+            raise AssertionError(f"(a) {m}: operations off the card: {sorted(audit.off_device)}")
+        launches += launched[0]
+        hs[m] = bootstrap_core._distance_batch("hs", blochs, bloch_est, n).double()
+    # B1's inputs on the chain's counts as estimate_mle_rhor builds them,
+    # through the plain loop
+    freq = state_core._frequencies(counts["chain"])
+    bloch0 = state_core._mixed_start(inits["chain"], d, 0.05)
+    a2 = state_core.weighted_povm_flat(povm, n_meas) * d
+    plain = kernels.rhor_mle_reference(freq, bloch0, a2, MLE_ITERS)
+    hs_plain = bootstrap_core._distance_batch("hs", plain, bloch_est, n).double()
+    err32 = float((hs["chain"] - hs_plain).abs().max())
+    medians = {}
+    for m in methods:
+        sample = hs[m].cpu().numpy()
+        medians[m] = _check_distances(sample, N_POINTS, f"(a) the {m} draw's MLE-{MLE_ITERS}")
+    rel = abs(medians["chain"] - medians["binary"]) / medians["binary"]
+    log(f"      estimate_lin + estimate_mle_rhor (RrhoR-{MLE_ITERS}) + hs on each: rhor_mle "
+        f"launches {launches} (expected {2 * B1_PER_F32_BATCH}); median hs chain "
+        f"{medians['chain']:.4e}, binary {medians['binary']:.4e} (off by {rel:.4f}, limit "
+        f"{CHAIN_MEDIAN_REL}; band {MEDIAN_BAND}); B1 against the plain loop on the chain's "
+        f"counts, max|delta hs| {err32:.3e} (limit {HS_TOL_F32:.0e})")
+    if not err32 <= HS_TOL_F32:
+        raise AssertionError(f"B1 disagrees with the plain loop on the chain's counts: {err32}")
+    if not rel <= CHAIN_MEDIAN_REL:
+        raise AssertionError(f"the chain draw's median hs is {rel:.4f} off the binary split's")
+    return launches
+
+
+def _kron_sums(counts, n_shots):
+    """Per-outcome sums over the POVM rows, and whether every row holds
+    exactly `n_shots`."""
+    exact = bool((counts.sum(-1) == n_shots).all())
+    return counts.double().sum(-2), exact
+
+
+def _chunked_kron_row(card):
+    """Phase 14, part (b): GHZ-n with proj-set, N_SHOTS shots per POVM,
+    drawn fused (`kron_simulate`) and in blocks (`kron_simulate_chunked`):
+    times, peaks, exact row totals, per-outcome sums within 5 standard
+    errors; then the one-block draw equal to the fused one bit for bit."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.measurements import _single_qubit_preset
+    from quantpy_tpu_torch.ops.paulis import group_sizes
+    from quantpy_tpu_torch.tomography import kron_core
+
+    n, n_equal = SURFACE_KRON
+    dev, f32 = torch.device(DEVICE), torch.float32
+    povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=f32, device=dev)
+    truth = qtt.GHZ(n).bloch_tensor(dev, f32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(140 + n)
+    rows = {}
+    for name, draw in (("kron_simulate", kron_core.kron_simulate),
+                       ("kron_simulate_chunked", kron_core.kron_simulate_chunked)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts = draw(gen, povm1, truth, N_SHOTS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if counts.device.type != DEVICE or counts.shape != (3**n, 2**n):
+            raise AssertionError(f"{name} returned {tuple(counts.shape)} on {counts.device}")
+        sums, exact = _kron_sums(counts, N_SHOTS)
+        rows[name] = (seconds, peak, sums, exact)
+        del counts
+    probs = kron_core.kron_probs(povm1.double(), n, truth.double())
+    probs = probs / probs.sum(-1, keepdim=True)
+    var = (N_SHOTS * probs * (1 - probs)).sum(-2)
+    expected = (N_SHOTS * probs).sum(-2)
+    del probs
+    (s_f, p_f, sum_f, ok_f), (s_c, p_c, sum_c, ok_c) = rows.values()
+    z_pair = float(((sum_f - sum_c).abs() / (2 * var).sqrt().clamp(min=1e-300)).max())
+    z_truth = max(float(((s - expected).abs() / var.sqrt().clamp(min=1e-300)).max())
+                  for s in (sum_f, sum_c))
+    m0 = 3 ** group_sizes(n)[0]
+    log(f"    (b) GHZ-{n}, proj-set, {N_SHOTS} shots per POVM, float32 on {card}: "
+        f"{3**n} x {2**n} counts ({3**n * 2**n * 4 / 1e9:.2f} GB)")
+    log(f"      kron_simulate {s_f:.3f} s, peak {p_f:.2f} GiB; kron_simulate_chunked ({m0} "
+        f"blocks) {s_c:.3f} s, peak {p_c:.2f} GiB; row totals exact: {ok_f}, {ok_c}; "
+        f"per-outcome sums, largest |fused - chunked| {z_pair:.2f} SE, largest |draw - n p| "
+        f"{z_truth:.2f} SE (limit 5)")
+    if not (ok_f and ok_c):
+        raise AssertionError("a GHZ-12 draw's row totals are not exact")
+    if not (z_pair <= 5 and z_truth <= 5):
+        raise AssertionError(f"the fused and chunked draws disagree: {z_pair}, {z_truth} SE")
+
+    truth = qtt.GHZ(n_equal).bloch_tensor(dev, f32)
+    draws = []
+    for draw in (kron_core.kron_simulate,
+                 lambda *a: kron_core.kron_simulate_chunked(*a, n_calls=1)):
+        gen.manual_seed(141)
+        draws.append(draw(gen, povm1, truth, N_SHOTS))
+    same = torch.equal(*draws)
+    log(f"      GHZ-{n_equal}: kron_simulate_chunked(n_calls=1) equals kron_simulate on a "
+        f"reseeded generator bit for bit: {same}")
+    if not same:
+        raise AssertionError("the one-block chunked draw differs from kron_simulate")
+
+
+def _state_chunk_row(card):
+    """Phase 14, part (c): phase 9's channel design, channel_l2_moments_kron
+    at two state chunkings on the same probes, float64."""
+    import numpy as np
+
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import kron_analytic
+
+    n, shots, chunks, n_probes = SURFACE_CHANNEL
+    dev = torch.device(DEVICE)
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=97)  # phase 9's
+    tmg.experiment(shots)
+    freq3 = np.stack([t.results / t.n_measurements[:, None] for t in tmg.tomographs])
+    n_trials = tmg.tomographs[0].n_measurements[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(142)
+    probes = torch.randint(0, 2, (n_probes,) + (4,) * n, generator=gen, device=dev)
+    probes = probes.to(torch.float64) * 2 - 1
+    out = {}
+    for chunk in chunks:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        moments = kron_analytic.channel_l2_moments_kron(
+            tmg._states1_t, tmg._povm1, n, freq3, n_trials, state_chunk=chunk, probes=probes,
+            device=dev)
+        torch.cuda.synchronize()
+        out[chunk] = (moments, time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 2**20)
+    (m_a, s_a, p_a), (m_b, s_b, p_b) = out.values()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(m_a, m_b))
+    log(f"    (c) channel_l2_moments_kron on depolarizing(0.1, {n}), {len(freq3)} inputs, "
+        f"{shots} shots, {n_probes} probes, float64 on {card}: state_chunk {chunks[0]} "
+        f"{s_a:.3f} s, peak {p_a:.1f} MiB; state_chunk {chunks[1]} {s_b:.3f} s, peak "
+        f"{p_b:.1f} MiB; (mean, variance) ({m_b[0]:.9e}, {m_b[1]:.9e}), largest relative "
+        f"difference {rel:.3e} "
+        f"(limit {SURFACE_CHANNEL_REL:.0e})")
+    if not (all(math.isfinite(v) for v in m_a + m_b) and rel <= SURFACE_CHANNEL_REL):
+        raise AssertionError(f"the state chunkings disagree: {m_a} against {m_b}")
+
+
+def _pgdb_host_row(card):
+    """Phase 14, part (d): estimate_pgdb_factored_host from a lifp warm
+    start, float64: against estimate_pgdb_factored, and the card against
+    the CPU."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.tomography import process_core
+
+    n, shots, n_iter, cptp_iter = SURFACE_PGDB
+    f64 = torch.float64
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=143, dtype=f64)
+    tmg.experiment(shots)
+    design = tmg._design()  # counts, input blochs, POVM, shots per POVM
+    kwargs = dict(max_iter=n_iter, cptp_iter=cptp_iter)
+
+    def run(device, fn):
+        args = tuple(x.to(device) for x in design)
+        init = process_core.estimate_lifp_factored(*args, cptp_iter=cptp_iter)
+        return fn(*args, init_bloch=init, **kwargs)
+
+    t0 = time.perf_counter()
+    host = run(DEVICE, process_core.estimate_pgdb_factored_host)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fused = run(DEVICE, process_core.estimate_pgdb_factored)
+    on_cpu = run("cpu", process_core.estimate_pgdb_factored_host)
+    gap = float((host - fused).abs().max())
+    card_cpu = float((host.cpu() - on_cpu).abs().max())
+    log(f"    (d) estimate_pgdb_factored_host, depolarizing(0.1, {n}), {shots} shots, lifp "
+        f"warm start, {n_iter} iterations, {cptp_iter} Dykstra iterations, float64: "
+        f"{seconds:.2f} s on {card}; max|delta| against estimate_pgdb_factored {gap:.3e}, "
+        f"card against the CPU {card_cpu:.3e} (limit {SURFACE_PGDB_TOL:.0e})")
+    if host.device.type != DEVICE or host.dtype != f64:
+        raise AssertionError(f"the host pgdb returned {host.dtype} on {host.device}")
+    if not (gap <= SURFACE_PGDB_TOL and card_cpu <= SURFACE_PGDB_TOL):
+        raise AssertionError(f"the host pgdb disagrees: {gap}, {card_cpu}")
+
+
+def _df32_and_cplx_row(card):
+    """Phase 14, part (e): ops/df32 and ops/cplx on the card against
+    float64 and against themselves."""
+    import numpy as np
+
+    from quantpy_tpu_torch.ops import cplx, df32
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(144)
+    n = SURFACE_DF32_N
+    a = torch.randn(n, generator=gen, device=dev) * 1e3
+    b = torch.randn(n, generator=gen, device=dev)
+    s, e = df32.two_sum(a, b)
+    sum_exact = bool(torch.equal(s.double() + e.double(), a.double() + b.double()))
+    p, e = df32.two_prod(a, b)
+    prod_exact = bool(torch.equal(p.double() + e.double(), a.double() * b.double()))
+    den = b.abs() + 1e-3
+    hi, lo = df32.df_div_ff(a, den)
+    div_rel = float(((hi.double() + lo.double()) - a.double() / den.double()).abs()
+                    .div(a.double().abs() / den.double()).max())
+    x = torch.rand(n, generator=gen, device=dev)
+    total = df32.sum2f(x)
+    want = x.double().sum()
+    ulps = float((total.double() - want).abs() / torch.finfo(torch.float32).eps
+                 / want.float().abs().double())
+    plain = float((x.sum().double() - want).abs() / want)
+    z = (torch.randn(64, 16, generator=gen, device=dev)
+         + 1j * torch.randn(64, 16, generator=gen, device=dev)).to(torch.complex64)
+    host_z = z.cpu().numpy()
+    pair = cplx.to_pair(host_z)
+    back = cplx.from_pair(pair)
+    as_complex = cplx.pair_to_complex(pair)
+    round_trip = (pair.device.type == DEVICE and np.array_equal(back, host_z)
+                  and torch.equal(as_complex, z) and torch.equal(cplx.complex_to_pair(z), pair))
+    log(f"    (e) on {card}, {n} float32 numbers: two_sum exact {sum_exact}, two_prod exact "
+        f"{prod_exact}; df_div_ff (hi, lo) against float64 {div_rel:.3e} relative (limit "
+        f"2^-40 = {SURFACE_DF32_REL:.3e}); sum2f {ulps:.3f} float32 ulp from the float64 sum "
+        f"(limit 1; torch.sum's float32 result {plain:.3e} relative); to_pair / from_pair / "
+        f"pair_to_complex / complex_to_pair round trip exact: {round_trip}")
+    if not (sum_exact and prod_exact and round_trip):
+        raise AssertionError("an error-free transformation or a pair conversion is not exact")
+    if not (div_rel <= SURFACE_DF32_REL and ulps <= 1.0):
+        raise AssertionError(f"df32 off float64: div {div_rel}, sum2f {ulps} ulp")
+
+
+def phase14_surface(card, tmg, est):
+    """The rest of the surface on the card; returns the rhor_mle launches
+    of its counted runs."""
+    log("[14] the rest of the surface: the chain sampler, the chunked kron draw, "
+        "state_chunk, the host pgdb, ops/df32 and ops/cplx")
+    t0 = time.perf_counter()
+    launches = _chain_flagship_row(card, tmg, est)
+    t1 = time.perf_counter()
+    _chunked_kron_row(card)
+    t2 = time.perf_counter()
+    _state_chunk_row(card)
+    t3 = time.perf_counter()
+    _pgdb_host_row(card)
+    t4 = time.perf_counter()
+    _df32_and_cplx_row(card)
+    t5 = time.perf_counter()
+    log(f"    phase 14: {t5 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
+        f"(d) {t4 - t3:.1f}, (e) {t5 - t4:.1f}); rhor_mle launches in its counted runs "
+        f"{launches}, rhor_mle_flat none")
+    return launches
+
+
 def main() -> int:
     card = phase0_device()
     log(card)
@@ -3276,6 +3606,7 @@ def main() -> int:
     bench_b1, bench_b2 = phase13_bench_and_entry(card, rate_ms)
     launches += bench_b1
     flat_launches += bench_b2
+    launches += phase14_surface(card, tmg, est)
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),

@@ -25,7 +25,8 @@ bench.py's keys and four of its own:
   rests on the TPU's vector-unit issue rate and has no counterpart here.
 - `state_lin_6q_ms`, `state_boot_6q_mle_rec_s`, `state_scaling_kron`
   (rows with `lin_ms`, `mle60_ms`, `mle_hs`; the 11-qubit row also
-  `simulate_s`, one `kron_simulate`: the port has no chunked simulate),
+  `simulate_s`, one `kron_simulate`, and `simulate_chunked_s`, one
+  `kron_simulate_chunked` in 27 blocks, as bench.py times it),
   `state_boot_10q_mle_rec_s`, `kernel_lane_rec_s` and `kernel_flat_rec_s`
   (the flagship call through each RrhoR kernel, in turns; the flat kernel
   is swapped in with `flat_kernel_on_main_path`), `process_boot_4q_rec_s`.
@@ -66,6 +67,7 @@ VARIANT_REPS = 2  # timed calls of each best-of-2 row
 REFERENCE_REC_PER_SEC = 1.0 / 18.0  # BASELINE.md: ~18 s per 4-qubit MLE, CPU
 STATE_6Q = (6, 256)  # qubits, resamples of the small kron bootstrap
 SCALING_QUBITS = (2, 4, 6, 8, 10, 11)
+SIMULATE_ROW_QUBITS = 11  # scaling rows from here on also time both draws
 STATE_10Q = (10, 16)  # qubits, resamples of the large kron bootstrap
 PROCESS_BOOT = (4, 2_000, 256)  # qubits, shots per POVM, resamples
 # FP32 lanes per SM by compute capability (the CUDA programming guide's
@@ -255,7 +257,13 @@ def state_scaling_kron(device: torch.device, label: str) -> dict:
         gen = make_generator(100 + n, device)
         sim_ms, cn = _timed_ms(lambda: kron_core.kron_simulate(gen, povm1, bn, float(N_SHOTS)),
                                device)
-        row = {"simulate_s": round(sim_ms / 1e3, 4)} if n >= 11 else {}
+        row = {}
+        if n >= SIMULATE_ROW_QUBITS:
+            del cn
+            chunked_ms, cn = _timed_ms(
+                lambda: kron_core.kron_simulate_chunked(gen, povm1, bn, float(N_SHOTS)), device)
+            row = {"simulate_s": round(sim_ms / 1e3, 4),
+                   "simulate_chunked_s": round(chunked_ms / 1e3, 4)}
         kron_core.kron_estimate_lin(cn, povm1, n)
         lin_ms, _ = _timed_ms(lambda: kron_core.kron_estimate_lin(cn, povm1, n), device)
         kron_core.kron_estimate_mle_rhor(cn, povm1, n, max_iter=MLE_ITERS)
@@ -266,7 +274,9 @@ def state_scaling_kron(device: torch.device, label: str) -> dict:
         row["mle_hs"] = round(float(_distance_batch("hs", est, bn, n)), 4)
         scaling[str(n)] = row
         del cn
-        log(f"secondary: {n}-qubit simulate {sim_ms:.3f} ms, lin {row['lin_ms']} ms, "
+        chunked = (f" (chunked {row['simulate_chunked_s'] * 1e3:.3f} ms)"
+                   if "simulate_chunked_s" in row else "")
+        log(f"secondary: {n}-qubit simulate {sim_ms:.3f} ms{chunked}, lin {row['lin_ms']} ms, "
             f"MLE-{MLE_ITERS} {row['mle60_ms']} ms, hs-to-truth {row['mle_hs']} on {label}")
     return {"state_scaling_kron": scaling}
 

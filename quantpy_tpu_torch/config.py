@@ -25,6 +25,10 @@ import torch
 
 __all__ = [
     "set_dtype",
+    "enable_x64",
+    "is_x64",
+    "set_matmul_precision",
+    "default_device_kind",
     "rdtype",
     "cdtype",
     "complex_dtype",
@@ -50,6 +54,50 @@ def set_dtype(dtype: torch.dtype) -> None:
     if dtype not in _REAL_DTYPES:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     _dtype = dtype
+
+
+def enable_x64(enable: bool = True) -> None:
+    """Switch the default real dtype to float64 (or back to float32), the
+    JAX package's x64 mode. The card has float64, so unlike the JAX
+    package's TPU guard this does not raise on a CUDA default device."""
+    set_dtype(torch.float64 if enable else torch.float32)
+
+
+def is_x64() -> bool:
+    """Whether the default real dtype is float64."""
+    return rdtype() == torch.float64
+
+
+#: the JAX package's matmul precision names, as torch's float32 settings
+_MATMUL_PRECISION = {
+    "highest": "highest",
+    "float32": "highest",
+    "high": "high",
+    "tensorfloat32": "high",
+    "bfloat16_3x": "high",
+    "default": "medium",
+    "bfloat16": "medium",
+}
+
+
+def set_matmul_precision(precision: str = "highest") -> None:
+    """Set the float32 matmul precision by the JAX package's names:
+    'highest'/'float32' keep full float32 products (pinned on import),
+    'high'/'tensorfloat32'/'bfloat16_3x' allow TF32, and
+    'default'/'bfloat16' allow bf16 (`torch.set_float32_matmul_precision`'s
+    'highest', 'high' and 'medium'). Any other name raises ValueError."""
+    if precision not in _MATMUL_PRECISION:
+        raise ValueError(
+            f"unknown matmul precision {precision!r}; expected one of "
+            f"{sorted(_MATMUL_PRECISION)}")
+    torch.set_float32_matmul_precision(_MATMUL_PRECISION[precision])
+
+
+def default_device_kind() -> str:
+    """Platform of the default device, by the JAX package's names: 'gpu'
+    for a CUDA device, 'cpu' for the CPU."""
+    kind = _device.type
+    return "gpu" if kind == "cuda" else kind
 
 
 def rdtype() -> torch.dtype:

@@ -1,6 +1,7 @@
 """Tensor operations: Pauli transforms, distances, sampling and the RrhoR
 kernels."""
 
+from .cplx import complex_to_pair, from_pair, pair_to_complex, to_pair
 from .geometry import fidelity, hs_dst, if_dst, product, resolve_distance, trace_dst
 from .kernels import rhor_mle, rhor_mle_flat, rhor_mle_flat_reference, rhor_mle_reference
 from .lstsq import left_inverse, lstsq_solve
@@ -44,4 +45,8 @@ __all__ = [
     "rhor_mle_reference",
     "rhor_mle_flat",
     "rhor_mle_flat_reference",
+    "complex_to_pair",
+    "from_pair",
+    "pair_to_complex",
+    "to_pair",
 ]

@@ -97,6 +97,11 @@ class Qobj(BaseQuantum):
             self.bloch, dtype=dtype or rdtype(), device=device or get_device()
         )
 
+    def bloch_device(self) -> torch.Tensor:
+        """Real bloch vector as a tensor on the default device in the
+        default dtype (`bloch_tensor()`)."""
+        return self.bloch_tensor()
+
     def ptrace(self, keep=(0,)) -> "Qobj":
         """Partial trace keeping qubit indices `keep`."""
         n = self.n_qubits

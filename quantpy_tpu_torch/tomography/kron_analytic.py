@@ -46,7 +46,7 @@ __all__ = [
 
 F64 = torch.float64
 #: bytes of one work tensor of a column chunk of <R, S> and of a state
-#: chunk of the channel paths
+#: chunk of the per-state channel path
 _CHUNK_BYTES = 1 << 30
 
 
@@ -299,6 +299,7 @@ def channel_l2_moments_kron(
     n_trials,
     n_probes: int = 128,
     key=None,
+    state_chunk: int = 256,
     probe_chunk: int = 16,
     probes=None,
     device=None,
@@ -331,6 +332,10 @@ def channel_l2_moments_kron(
     n_trials : uniform shots per (state, POVM)
     key : int seed or torch.Generator on `device` for the probes
         (default: seed 1234)
+    state_chunk : states per fold: the exact mean and each probe batch's
+        folds run over the states in chunks of this size, which bounds the
+        memory of the per-state work tensors (state_chunk x probe_chunk x
+        (m1 p1)^n entries); the result changes only by summation order
     probe_chunk : probes per batch
     probes : optional (n_probes,) + (4,)*n tensor of +-1 probes to use
         instead of drawing them
@@ -361,7 +366,7 @@ def channel_l2_moments_kron(
     if probes is not None:
         probes = torch.as_tensor(probes, dtype=F64, device=device)
         n_probes = probes.shape[0]
-    state_chunk = max(1, _CHUNK_BYTES // (8 * probe_chunk * c_dim**n))
+    state_chunk = max(1, int(state_chunk))
     chunks = [x[lo : lo + state_chunk] for lo in range(0, s_count, state_chunk)]
 
     def tr_mp_chunk(xc):

@@ -54,6 +54,7 @@ __all__ = [
     "kron_adjoint_flat",
     "kron_row_component",
     "kron_simulate",
+    "kron_simulate_chunked",
     "kron_nll_tril",
     "kron_estimate_lin",
     "kron_estimate_mle_rhor",
@@ -185,12 +186,55 @@ def kron_row_component(povm1, n_qubits: int, component: int = 0) -> np.ndarray:
 def kron_simulate(generator, povm1, bloch, n_shots):
     """Multinomial counts (..., m1^n, p1^n) on the factored design for
     bloch (..., 4^n), with `n_shots` shots per POVM; `generator` lives on
-    the device of `bloch`."""
+    the device of `bloch`. The one-block case of
+    :func:`kron_simulate_chunked`."""
+    return kron_simulate_chunked(generator, povm1, bloch, n_shots, n_calls=1)
+
+
+def kron_simulate_chunked(generator, povm1, bloch, n_shots, n_calls: int | None = None):
+    """Multinomial counts as :func:`kron_simulate` returns them, drawn in
+    `n_calls` blocks over the first measurement group's m-axis.
+
+    Each POVM row is an independent multinomial, so drawing the rows in
+    blocks samples exactly the same design; the blocks are drawn from
+    `generator` in block order, and the probabilities and draw
+    intermediates of one block are alive at a time (the counts are
+    assembled on the device). `n_calls=None` draws one block per
+    first-group m row (27 blocks at 9-12 qubits of proj-set); with
+    `n_calls=1` this is :func:`kron_simulate`, bit for bit.
+
+    The JAX package picks between its fused and chunked draws by a cap on
+    the TPU's single-execution time (`quantpy_tpu/tomography/state.py`);
+    a CUDA launch has no such cap, so `StateTomograph` keeps the fused draw
+    and this function is for draws whose intermediates must stay small.
+    """
     bloch = as_real(bloch)
+    povm1 = as_real(povm1, like=bloch)
     n_qubits = int(round(math.log(bloch.shape[-1], 4)))
-    probs = kron_probs(povm1, n_qubits, bloch)
-    n_arr = torch.full(probs.shape[:-1], float(n_shots), dtype=probs.dtype, device=probs.device)
-    return sample_multinomial(generator, n_arr, probs)
+    groups, factors = _grouped_factors(povm1, n_qubits)
+    f0 = factors[0]
+    m0 = f0.shape[0]
+    n_calls = m0 if n_calls is None else max(1, min(int(n_calls), m0))
+    block = -(-m0 // n_calls)
+    x = bloch.reshape((-1,) + tuple(4**g for g in groups))
+
+    def draw(f0_rows):
+        probs = (_forward_chain([f0_rows] + factors[1:], x) * (2**n_qubits)).clamp(0.0, 1.0)
+        n_arr = torch.full(probs.shape[:-1], float(n_shots), dtype=probs.dtype,
+                           device=probs.device)
+        return sample_multinomial(generator, n_arr, probs)
+
+    if block >= m0:
+        counts = draw(f0)
+    else:
+        rows = math.prod(f.shape[0] for f in factors[1:])
+        counts = None
+        for lo in range(0, m0, block):
+            part = draw(f0[lo : lo + block])
+            if counts is None:
+                counts = part.new_empty((x.shape[0], m0 * rows, part.shape[-1]))
+            counts[:, lo * rows : lo * rows + part.shape[1]] = part
+    return counts.reshape(tuple(bloch.shape[:-1]) + tuple(counts.shape[1:]))
 
 
 def kron_nll_tril(tril_vec, povm1, n_qubits: int, freq_flat, m_total: int):

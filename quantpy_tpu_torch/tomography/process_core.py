@@ -60,6 +60,7 @@ __all__ = [
     "pgdb_factored_step",
     "estimate_pgdb",
     "estimate_pgdb_factored",
+    "estimate_pgdb_factored_host",
     "dys_factored_chunk",
     "estimate_dys_factored",
     "cptp_project_bloch_diff",
@@ -619,6 +620,30 @@ def estimate_pgdb_factored(
     return _pgd_descend(
         x, *_factored_objective(flat, b, w), 1.5 / b.shape[-1], max_iter, tol, cptp_iter,
         cptp_tol,
+    )
+
+
+def estimate_pgdb_factored_host(
+    counts,
+    input_blochs_t,
+    povm_matrix,
+    n_measurements,
+    max_iter: int = 1000,
+    tol: float = 1e-10,
+    cptp_iter: int = 1000,
+    cptp_tol: float = 1e-10,
+    init_bloch=None,
+):
+    """pgdb with the outer descent loop on the host, one
+    `pgdb_factored_step` per iteration and the NLL decrease read between
+    steps. The JAX package keeps this loop apart from its fused on-device
+    `estimate_pgdb_factored` for the TPU's single-execution time cap; here
+    `estimate_pgdb_factored` already runs this loop, so this is that call.
+    `init_bloch` warm-starts the descent (for instance at the lifp
+    estimate)."""
+    return estimate_pgdb_factored(
+        counts, input_blochs_t, povm_matrix, n_measurements, max_iter, tol, cptp_iter,
+        cptp_tol, init_bloch,
     )
 
 

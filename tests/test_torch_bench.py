@@ -111,6 +111,17 @@ def test_main_prints_bench_py_keys(small, peak, capsys):
         assert extras[key] > 0
 
 
+def test_scaling_rows_time_both_draws_from_11_qubits(small, peak, capsys, monkeypatch):
+    """bench.py's 11-qubit row times the chunked draw (`simulate_chunked_s`);
+    the twin's times it beside the fused one (`simulate_s`)."""
+    monkeypatch.setattr(bench, "SIMULATE_ROW_QUBITS", 2)
+    line, _ = _run(capsys)
+    (row,) = line["extras"]["state_scaling_kron"].values()
+    assert set(row) == {"simulate_s", "simulate_chunked_s", "lin_ms", "mle60_ms", "mle_hs"}
+    assert row["simulate_s"] >= 0 and row["simulate_chunked_s"] >= 0
+    assert 0 <= row["mle_hs"] < 0.05
+
+
 def test_a_failed_section_is_named_in_skipped(small, peak, capsys, monkeypatch):
     error = RuntimeError("injected")
 

@@ -653,3 +653,37 @@ def test_bench_headline_launches_the_lane_kernel_once_per_call(cuda, monkeypatch
     times, sample = bench.headline(run, cuda, "test")
     assert kernels.rhor_mle.launches == before[0] + 2 + bench.HEADLINE_REPS
     assert len(times) == bench.HEADLINE_REPS and np.isfinite(sample).all()
+
+
+def test_chain_sampler_on_the_card(cuda):
+    """method='chain' on the card: exact totals, zero outcomes kept, the
+    per-outcome mean within 5 standard errors, and a B1 estimate of its
+    counts equal to the plain loop's."""
+    from quantpy_tpu_torch.ops.sampling import sample_multinomial
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    p = torch.tensor([0.05, 0.0, 0.25, 0.2, 0.5], dtype=torch.float64, device=cuda)
+    counts = sample_multinomial(gen, 1000.0, p, shape=(20_000,), method="chain")
+    assert counts.device.type == "cuda" and counts.shape == (20_000, 5)
+    assert torch.all(counts.sum(-1) == 1000.0) and torch.all(counts[:, 1] == 0)
+    se = (1000.0 * p * (1 - p) / 20_000).sqrt()
+    assert torch.all((counts.mean(0) - 1000.0 * p).abs() <= 5 * se + 1e-12)
+
+    n, batch = 2, 64
+    povm = torch.as_tensor(qtt.generate_measurement_matrix("proj-set", n), dtype=torch.float32,
+                           device=cuda)
+    n_meas = torch.full((povm.shape[0],), 2000.0, dtype=torch.float32, device=cuda)
+    probs = state_core.experiment_probabilities(
+        povm, qtt.GHZ(n).bloch_tensor(cuda, torch.float32).expand(batch, -1))
+    counts = sample_multinomial(gen, n_meas, probs, method="chain")
+    assert torch.all(counts.sum(-1) == 2000.0)
+    d = 2**n
+    init = state_core.estimate_lin(counts, povm, n_meas)
+    bloch0 = state_core._mixed_start(init, d, 0.05).contiguous()
+    freq = counts.reshape(batch, -1)
+    freq = (freq / freq.sum(-1, keepdim=True)).contiguous()
+    a2 = (state_core.weighted_povm_flat(povm, n_meas) * d).contiguous()
+    via_kernel = kernels.rhor_mle(freq, bloch0, a2, 40)
+    via_plain = kernels.rhor_mle_reference(freq, bloch0, a2, 40)
+    assert float((via_kernel - via_plain).abs().max()) <= TOL[torch.float32]

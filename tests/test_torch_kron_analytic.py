@@ -114,16 +114,17 @@ def test_channel_l2_moments_kron_on_the_jax_probes(n):
     np.testing.assert_allclose(ours, ref, rtol=1e-10)
 
 
-def test_channel_l2_moments_kron_against_the_exact_recipe(monkeypatch):
+def test_channel_l2_moments_kron_against_the_exact_recipe():
     n = 2
     states, povm, freq = _channel_experiment(n, seed=55)
     mean_d, var_d = ka.channel_l2_moments(states, povm, freq, 3000.0)
     # several state chunks and a ragged last probe batch
-    monkeypatch.setattr(ka, "_CHUNK_BYTES", 8 * 10 * 36 * 5)
     mean_k, var_k = ka.channel_l2_moments_kron(
-        STATES1_T, POVM1, n, freq, 3000.0, n_probes=250, probe_chunk=10, key=5)
+        STATES1_T, POVM1, n, freq, 3000.0, n_probes=250, probe_chunk=10, key=5,
+        state_chunk=5)
     np.testing.assert_allclose(mean_k, mean_d, rtol=1e-10)
     np.testing.assert_allclose(var_k, var_d, rtol=0.05)
     again = ka.channel_l2_moments_kron(
-        STATES1_T, POVM1, n, freq, 3000.0, n_probes=250, probe_chunk=10, key=5)
+        STATES1_T, POVM1, n, freq, 3000.0, n_probes=250, probe_chunk=10, key=5,
+        state_chunk=5)
     assert again == (mean_k, var_k)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 6 to 13 on the CPU, without a card.
+"""Rehearse chip_smoke.py's phases 6 to 14 on the CPU, without a card.
 
-    python tools/rehearse_smoke.py [--phases 678910111213] [--scaling 6]
+    python tools/rehearse_smoke.py [--phases 67891011121314] [--scaling 6]
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -20,7 +20,11 @@ expected: the CPU has no kernel), and phase 12's mesh to 4 CPU shards,
 bootstraps and coverage runs in (c)-(d), and phase 13's benchmark to a
 2-qubit headline of 64 resamples at 10 iterations with 2-qubit rows (the
 FP32 peak a stand-in of 1 TFLOP/s and its rate not held to phase 4's),
-`entry()` at its full size and the dry run on 4 CPU shards. What it prints are
+`entry()` at its full size and the dry run on 4 CPU shards, and phase 14's
+chain-sampled flagship to phase 3's resample count at 2 qubits, its kron
+draws to 4 qubits (the one-block equality to 3), its channel moments to 2
+qubits at state chunks of 3 and 16 with 16 probes, its host pgdb to 1
+qubit with 5 steps and its df32 row to 10^4 numbers. What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -57,7 +61,8 @@ class _HostEvent:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="678910111213", help="which of phases 6-13 to run")
+    parser.add_argument("--phases", default="67891011121314",
+                        help="which of phases 6-14 to run")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -108,6 +113,10 @@ def main() -> int:
     chip_smoke.MESH_PROCESS = (32, 50)
     chip_smoke.MESH_COVERAGE_EXACT = 200
     chip_smoke.BENCH_RATE_REL = math.inf  # a CPU rate at 2 qubits against none
+    chip_smoke.SURFACE_KRON = (4, 3)
+    chip_smoke.SURFACE_CHANNEL = (2, 2_000, (3, 16), 16)
+    chip_smoke.SURFACE_PGDB = (1, 2_000, 5, 100)
+    chip_smoke.SURFACE_DF32_N = 10_000
     bench.N_QUBITS, bench.N_POINTS, bench.MLE_ITERS = 2, 64, 10
     bench.SCALING_QUBITS = (2,)
     bench.STATE_6Q = (2, 8)
@@ -133,7 +142,9 @@ def main() -> int:
 
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
-    phases = args.phases.replace("13", "W").replace("12", "Z").replace("11", "Y").replace("10", "X")
+    phases = args.phases
+    for two_digits, letter in (("14", "V"), ("13", "W"), ("12", "Z"), ("11", "Y"), ("10", "X")):
+        phases = phases.replace(two_digits, letter)
     if "6" in phases:
         t0 = time.perf_counter()
         chip_smoke.phase6_cholesky_mle(card)
@@ -178,6 +189,10 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.phase13_bench_and_entry(card, 1.0)
         print(f"phase 13: {time.perf_counter() - t0:.1f} s on the CPU")
+    if "V" in phases:
+        t0 = time.perf_counter()
+        chip_smoke.phase14_surface(card, tmg, est)
+        print(f"phase 14: {time.perf_counter() - t0:.1f} s on the CPU")
     return 0
 
 

@@ -35,6 +35,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .paulis import PTM_MAX_QUBITS, _pauli_transfer_np
 
 __all__ = ["rhor_mle", "rhor_mle_flat", "rhor_mle_flat_reference", "rhor_mle_reference"]
@@ -147,6 +148,7 @@ def rhor_mle_reference(freq, bloch0, w2, n_iter: int, tol: float | None = None):
         ) / dim
         new = new / (dim * new[..., 0:1])
         if tol is not None:
+            profiling.count("host_sync")
             delta = float((new - bloch).abs().max())
             bloch = new
             if not delta > tol:
@@ -398,9 +400,11 @@ def rhor_mle(freq, bloch0, w2, n_iter: int = 60):
     n, d = _check(freq, bloch0, w2, n_iter)
     if freq.device.type == "cpu":
         return rhor_mle_reference(freq, bloch0, w2, n_iter)
-    k, d2 = w2.shape
-    out = _launch("rhor_mle", freq, bloch0, _lane_operands(w2, n), d, n_iter, k + 7 * d2)
-    _count_launch(rhor_mle)
+    with profiling.span("qt.rhor", freq.device):
+        k, d2 = w2.shape
+        out = _launch("rhor_mle", freq, bloch0, _lane_operands(w2, n), d, n_iter, k + 7 * d2)
+        _count_launch(rhor_mle)
+        profiling.count("launches")
     return out
 
 
@@ -416,10 +420,12 @@ def rhor_mle_flat(freq, bloch0, w2, n_iter: int = 60):
     n, d = _check(freq, bloch0, w2, n_iter)
     if freq.device.type == "cpu":
         return rhor_mle_flat_reference(freq, bloch0, w2, n_iter)
-    k, d2 = w2.shape
-    operands = _flat_fold_operands(w2, n)
-    out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 7 * d2)
-    _count_launch(rhor_mle_flat)
+    with profiling.span("qt.rhor", freq.device):
+        k, d2 = w2.shape
+        operands = _flat_fold_operands(w2, n)
+        out = _launch("rhor_mle_flat", freq, bloch0, operands, d, n_iter, k + 7 * d2)
+        _count_launch(rhor_mle_flat)
+        profiling.count("launches")
     return out
 
 

@@ -61,6 +61,7 @@ from ..config import as_real, rdtype
 from ..mhmc import _as_state
 from ..tomography import bootstrap_core, kron_core
 from ..tomography.state import make_generator
+from ..utils import profiling
 
 __all__ = [
     "make_mesh",
@@ -136,6 +137,7 @@ def shard_seeds(key, n: int) -> list[int]:
     """The seeds of `n` shards' generators: a stable function of (key, i),
     the same on every run and device (see the module docstring)."""
     if isinstance(key, torch.Generator):
+        profiling.count("host_sync")
         key = int(torch.randint(0, 2**63 - 1, (), generator=key, device=key.device))
     return [_derived_seed(key, i) for i in range(n)]
 
@@ -152,14 +154,21 @@ def _on(device):
 def _run_shards(mesh: Mesh, fn) -> list:
     """[fn(0), .., fn(size - 1)]: one worker thread per distinct device
     runs that device's shards in order (see the module docstring); a mesh
-    on one device runs them in the caller's thread."""
+    on one device runs them in the caller's thread. Each shard is a span
+    `qt.mesh.shard`, a child of the caller's open span, with the device
+    range of the kernels it launches outside other annotations."""
     groups: dict = {}
     for i, device in enumerate(mesh.devices):
         groups.setdefault(device, []).append(i)
+    caller = profiling.current()
+
+    def shard(device, i):
+        with profiling.span("qt.mesh.shard", device, device_range=True):
+            return fn(i)
 
     def run(device, shards):
-        with _on(device):
-            return [(i, fn(i)) for i in shards]
+        with profiling.resumed(caller), _on(device):
+            return [(i, shard(device, i)) for i in shards]
 
     if len(groups) == 1:
         pairs = run(*next(iter(groups.items())))
@@ -201,7 +210,8 @@ def _per_shard(mesh: Mesh, n: int, what: str) -> int:
 
 def _gather(mesh: Mesh, parts, dim: int = 0):
     """The shard results concatenated on devices[0] (out_specs=P(batch))."""
-    return torch.cat([p.to(mesh.devices[0]) for p in parts], dim=dim)
+    with profiling.span("qt.mesh.gather", mesh.devices[0]):
+        return torch.cat([p.to(mesh.devices[0]) for p in parts], dim=dim)
 
 
 def _psum(mesh: Mesh, parts):
@@ -234,8 +244,6 @@ def sharded_bootstrap_distances(
     mesh.devices[0] in shard order. `key` is an int seed or a
     torch.Generator."""
     per_dev = _per_shard(mesh, n_points, "n_points")
-    gens = shard_generators(mesh, key)
-    est, povm, n_meas = _replicas(mesh, bloch_est, povm_matrix, n_measurements)
 
     def shard(i):
         d = mesh.devices[i]
@@ -244,7 +252,11 @@ def sharded_bootstrap_distances(
             max_iter=max_iter,
         )
 
-    return _gather(mesh, _run_shards(mesh, shard))
+    with profiling.span("qt.mesh.call", mesh.devices[0]):
+        with profiling.span("qt.mesh.setup"):
+            gens = shard_generators(mesh, key)
+            est, povm, n_meas = _replicas(mesh, bloch_est, povm_matrix, n_measurements)
+        return _gather(mesh, _run_shards(mesh, shard))
 
 
 def sharded_kron_bootstrap_distances(
@@ -266,8 +278,6 @@ def sharded_kron_bootstrap_distances(
     resamples (in host chunks of `chunk`, see there) with its own
     generator; the distances are gathered on mesh.devices[0]."""
     per_dev = _per_shard(mesh, n_points, "n_points")
-    gens = shard_generators(mesh, key)
-    est, factor = _replicas(mesh, bloch_est, povm1)
 
     def shard(i):
         d = mesh.devices[i]
@@ -276,7 +286,11 @@ def sharded_kron_bootstrap_distances(
             dst=dst, max_iter=max_iter, chunk=chunk,
         )
 
-    return _gather(mesh, _run_shards(mesh, shard))
+    with profiling.span("qt.mesh.call", mesh.devices[0]):
+        with profiling.span("qt.mesh.setup"):
+            gens = shard_generators(mesh, key)
+            est, factor = _replicas(mesh, bloch_est, povm1)
+        return _gather(mesh, _run_shards(mesh, shard))
 
 
 def sharded_process_bootstrap_distances(
@@ -302,11 +316,6 @@ def sharded_process_bootstrap_distances(
     from ..tomography import process_core
 
     per_dev = _per_shard(mesh, n_points, "n_points")
-    gens = shard_generators(mesh, key)
-    choi, outs, inputs_t, povm, n_meas = _replicas(
-        mesh, choi_bloch, out_blochs, input_blochs_t, povm_matrix, n_measurements
-    )
-    n2 = int(round(math.log(next(iter(choi.values())).shape[-1], 4)))
 
     def shard(i):
         d = mesh.devices[i]
@@ -318,7 +327,14 @@ def sharded_process_bootstrap_distances(
         )
         return bootstrap_core._distance_batch(dst, blochs, choi[d], n2)
 
-    return _gather(mesh, _run_shards(mesh, shard))
+    with profiling.span("qt.mesh.call", mesh.devices[0]):
+        with profiling.span("qt.mesh.setup"):
+            gens = shard_generators(mesh, key)
+            choi, outs, inputs_t, povm, n_meas = _replicas(
+                mesh, choi_bloch, out_blochs, input_blochs_t, povm_matrix, n_measurements
+            )
+            n2 = int(round(math.log(next(iter(choi.values())).shape[-1], 4)))
+        return _gather(mesh, _run_shards(mesh, shard))
 
 
 def sharded_coverage(mesh: Mesh, key, problem, conf_levels, n_trials: int):
@@ -334,8 +350,6 @@ def sharded_coverage(mesh: Mesh, key, problem, conf_levels, n_trials: int):
 
     povm, n_meas, sim_blochs, prod, offset, clip_b = problem
     per_dev = _per_shard(mesh, n_trials, "n_trials")
-    gens = shard_generators(mesh, key)
-    blochs = _replicate(mesh, sim_blochs)
 
     def shard(i):
         return verification.coverage_hits(
@@ -343,7 +357,11 @@ def sharded_coverage(mesh: Mesh, key, problem, conf_levels, n_trials: int):
             per_dev, clip_b,
         )
 
-    hits = _run_shards(mesh, shard)
+    with profiling.span("qt.mesh.call", mesh.devices[0]):
+        with profiling.span("qt.mesh.setup"):
+            gens = shard_generators(mesh, key)
+            blochs = _replicate(mesh, sim_blochs)
+        hits = _run_shards(mesh, shard)
     return np.sum(hits, axis=0).astype(np.float64) / n_trials
 
 
@@ -376,7 +394,6 @@ def _sharded_chains(
     from ..mhmc import _run_chain, resolve_jump_distr
 
     per_dev = _per_shard(mesh, n_chains, "n_chains")
-    gens = shard_generators(mesh, key)
     jump_fn = resolve_jump_distr(jump_distr)
     burn, kept_steps = int(burn_steps), int(n_samples) * int(thinning)
 
@@ -390,10 +407,13 @@ def _sharded_chains(
         )
         return kept.transpose(0, 1), acc_burn + acc_kept
 
-    results = _run_shards(mesh, shard)
-    samples = _gather(mesh, [r[0] for r in results])
-    accepted = sum(int(r[1]) for r in results)
-    return samples.cpu().numpy(), accepted / (n_chains * (kept_steps + burn))
+    with profiling.span("qt.mesh.call", mesh.devices[0]):
+        with profiling.span("qt.mesh.setup"):
+            gens = shard_generators(mesh, key)
+        results = _run_shards(mesh, shard)
+        samples = _gather(mesh, [r[0] for r in results])
+        accepted = sum(int(r[1]) for r in results)
+        return samples.cpu().numpy(), accepted / (n_chains * (kept_steps + burn))
 
 
 def sharded_mhmc_state_chains(

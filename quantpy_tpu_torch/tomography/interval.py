@@ -48,6 +48,7 @@ from ..ops.paulis import np_bloch_to_matrix
 from ..qobj import Qobj
 from ..routines import _left_inv as _left_inv_np
 from ..stats import l2_moments_from_factor
+from ..utils import profiling
 from . import bootstrap_core, kron_analytic, kron_core, process_core, state_core
 from .polytopes.utils import count_confidence, count_delta
 from .state import make_generator
@@ -87,6 +88,14 @@ def _interp1d(x, y):
         return np.interp(np.asarray(q, dtype=np.float64), xs, ys)
 
     return f
+
+
+def _readback(dist):
+    """Distances on the device as float64 numpy: the host waits for the
+    card here."""
+    with profiling.span("qt.interval.readback"):
+        profiling.count("host_sync")
+        return dist.cpu().numpy().astype(np.float64)
 
 
 def _require_uniform_kron_shots(tmg, what: str):
@@ -568,59 +577,61 @@ class BootstrapStateInterval(ConfidenceInterval):
     def setup(self):
         if self.mode == Mode.CHANNEL:
             raise NotImplementedError("This interval works only for state tomography")
-        if self.state is None:
-            if hasattr(self.tmg, "reconstructed_state"):
-                self.state = self.tmg.reconstructed_state
+        with profiling.span("qt.interval", self.tmg.device):
+            dst_name = _DST_NAMES.get(self.tmg.dst)
+            device, dtype = self.tmg.device, self.tmg.dtype
+            with profiling.span("qt.interval.inputs"):
+                if self.state is None:
+                    if hasattr(self.tmg, "reconstructed_state"):
+                        self.state = self.tmg.reconstructed_state
+                    else:
+                        self.state = self.tmg.point_estimate(
+                            method=self.method, physical=self.physical,
+                            init=self.init, tol=self.tol, max_iter=self.max_iter,
+                        )
+                generator = make_generator(17 if self.key is None else self.key, device)
+                bloch_est = profiling.to_device(self.state.bloch, dtype, device)
+            if self.tmg.kron_mode:
+                if dst_name is None:
+                    raise NotImplementedError(
+                        "custom distance callables are not supported on the "
+                        "kron-factored bootstrap path (hs/trace/if only)"
+                    )
+                _require_uniform_kron_shots(self.tmg, "BootstrapStateInterval")
+                with profiling.span("qt.interval.inputs"):
+                    povm_kron = profiling.to_device(self.tmg.povm_kron, dtype, device)
+                dist = _readback(kron_core.kron_bootstrap_distances(
+                    generator, bloch_est, povm_kron,
+                    self.tmg.state.n_qubits, float(self.tmg.n_measurements[0]),
+                    n_points=self.n_points, method=self.method, dst=dst_name,
+                    max_iter=self.max_iter, physical=self.physical, init=self.init,
+                ))
             else:
-                self.state = self.tmg.point_estimate(
-                    method=self.method, physical=self.physical,
-                    init=self.init, tol=self.tol, max_iter=self.max_iter,
+                dist = self._dense_distances(generator, bloch_est, dst_name)
+            with profiling.span("qt.interval.sort"):
+                self.distances = np.sort(dist)
+                self.cl_to_dist = _interp1d(
+                    np.linspace(0, 1, len(self.distances)), self.distances
                 )
-        dst_name = _DST_NAMES.get(self.tmg.dst)
-        device, dtype = self.tmg.device, self.tmg.dtype
-        generator = make_generator(17 if self.key is None else self.key, device)
-        bloch_est = torch.as_tensor(self.state.bloch, dtype=dtype, device=device)
-        if self.tmg.kron_mode:
-            if dst_name is None:
-                raise NotImplementedError(
-                    "custom distance callables are not supported on the "
-                    "kron-factored bootstrap path (hs/trace/if only)"
-                )
-            _require_uniform_kron_shots(self.tmg, "BootstrapStateInterval")
-            dist = kron_core.kron_bootstrap_distances(
-                generator, bloch_est,
-                torch.as_tensor(self.tmg.povm_kron, dtype=dtype, device=device),
-                self.tmg.state.n_qubits, float(self.tmg.n_measurements[0]),
-                n_points=self.n_points, method=self.method, dst=dst_name,
-                max_iter=self.max_iter, physical=self.physical, init=self.init,
-            )
-            dist = dist.cpu().numpy().astype(np.float64)
-        else:
-            dist = self._dense_distances(generator, bloch_est, dst_name)
-        self.distances = np.sort(dist)
-        self.cl_to_dist = _interp1d(
-            np.linspace(0, 1, len(self.distances)), self.distances
-        )
 
     def _dense_distances(self, generator, bloch_est, dst_name):
         """The bootstrap distances on the materialized design, as float64
         numpy; a custom distance runs on the host."""
         device, dtype = self.tmg.device, self.tmg.dtype
-        args = (
-            generator,
-            bloch_est,
-            torch.as_tensor(self.tmg.povm_matrix, dtype=dtype, device=device),
-            torch.as_tensor(self.tmg.n_measurements, dtype=dtype, device=device),
-        )
+        with profiling.span("qt.interval.inputs"):
+            args = (
+                generator,
+                bloch_est,
+                profiling.to_device(self.tmg.povm_matrix, dtype, device),
+                profiling.to_device(self.tmg.n_measurements, dtype, device),
+            )
         options = dict(
             n_points=self.n_points, method=self.method, max_iter=self.max_iter,
             physical=self.physical, init=self.init, tol=self.tol,
         )
         if dst_name is not None:
-            dist = bootstrap_core.bootstrap_distances(*args, dst=dst_name, **options)
-            return dist.cpu().numpy().astype(np.float64)
-        blochs = bootstrap_core.bootstrap_blochs(*args, **options)
-        blochs = blochs.cpu().numpy().astype(np.float64)
+            return _readback(bootstrap_core.bootstrap_distances(*args, dst=dst_name, **options))
+        blochs = _readback(bootstrap_core.bootstrap_blochs(*args, **options))
         return np.asarray([self.tmg.dst(Qobj(b), self.state) for b in blochs])
 
 
@@ -686,34 +697,40 @@ class BootstrapProcessInterval(ConfidenceInterval):
         return self.channel
 
     def setup(self):
-        self._center()
-        generator = make_generator(19 if self.key is None else self.key, self.tmg.device)
-        self.distances = np.sort(self.distances_of(self.simulate(generator)))
-        self.cl_to_dist = _interp1d(
-            np.linspace(0, 1, len(self.distances)), self.distances
-        )
+        with profiling.span("qt.interval", self.tmg.device):
+            with profiling.span("qt.interval.inputs"):
+                self._center()
+                generator = make_generator(19 if self.key is None else self.key, self.tmg.device)
+            dist = self.distances_of(self.simulate(generator))
+            with profiling.span("qt.interval.sort"):
+                self.distances = np.sort(dist)
+                self.cl_to_dist = _interp1d(
+                    np.linspace(0, 1, len(self.distances)), self.distances
+                )
 
     def simulate(self, generator):
         """Counts (n_points, S, m, p) of `n_points` experiments on the
         bootstrap channel, as a tensor on the tomograph's device."""
         channel, tmg = self._center(), self.tmg
-        out_blochs = np.stack(
-            [channel.transform(s).bloch for s in tmg.input_basis.elements]
-        )
-        t0 = tmg.tomographs[0]
-        out_blochs = tmg._tensor(out_blochs)
+        with profiling.span("qt.interval.inputs"):
+            out_blochs = np.stack(
+                [channel.transform(s).bloch for s in tmg.input_basis.elements]
+            )
+            t0 = tmg.tomographs[0]
+            out_blochs = tmg._tensor(out_blochs)
+            povm, n_meas = tmg._tensor(t0.povm_matrix), tmg._tensor(t0.n_measurements)
         return process_core.simulate_process_experiment(
-            generator, tmg._tensor(t0.povm_matrix),
-            out_blochs.expand((self.n_points,) + tuple(out_blochs.shape)),
-            tmg._tensor(t0.n_measurements),
+            generator, povm, out_blochs.expand((self.n_points,) + tuple(out_blochs.shape)),
+            n_meas,
         )
 
     def estimate(self, counts):
         """Choi bloch vectors (B, 16^n) re-estimated from counts
         (B, S, m, p) by the interval's method."""
         tmg = self.tmg
-        counts = tmg._tensor(counts)
-        design = tmg._design()[1:]  # input blochs, POVM, shots
+        with profiling.span("qt.interval.inputs"):
+            counts = tmg._tensor(counts)
+            design = tmg._design()[1:]  # input blochs, POVM, shots
         n_ch = tmg.channel.n_qubits
         cp = self.cp_engine or ("ns" if n_ch >= 4 else "eigh")
         if self.method == "lifp":
@@ -759,11 +776,10 @@ class BootstrapProcessInterval(ConfidenceInterval):
         n2 = 2 * self.tmg.channel.n_qubits
         dst_name = _DST_NAMES.get(self.tmg.dst)
         if dst_name is not None:
-            dist = bootstrap_core._distance_batch(
-                dst_name, choi_blochs, self.tmg._tensor(channel.choi.bloch), n2
-            )
-            return dist.cpu().numpy().astype(np.float64)
-        mats = np_bloch_to_matrix(choi_blochs.cpu().numpy().astype(np.float64), n2)
+            with profiling.span("qt.interval.inputs"):
+                center = self.tmg._tensor(channel.choi.bloch)
+            return _readback(bootstrap_core._distance_batch(dst_name, choi_blochs, center, n2))
+        mats = np_bloch_to_matrix(_readback(choi_blochs), n2)
         return np.asarray([self.tmg.dst(Qobj(m), channel.choi) for m in mats])
 
 

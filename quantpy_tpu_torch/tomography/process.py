@@ -25,6 +25,7 @@ from ..measurements import _single_qubit_preset, generate_measurement_matrix
 from ..ops.geometry import resolve_distance
 from ..qobj import Qobj
 from ..routines import generate_single_entries
+from ..utils import profiling
 from . import process_core, state_core
 from .state import StateTomograph, bound_once, make_generator
 
@@ -93,7 +94,7 @@ class ProcessTomograph:
         self.tomographs: list[StateTomograph] | None = None
 
     def _tensor(self, x):
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        return profiling.to_device(x, self.dtype, self.device)
 
     # -- experiment -----------------------------------------------------------
 

@@ -37,6 +37,7 @@ from ..ops.paulis import (
     np_matrix_to_bloch,
     pauli_transpose_signs,
 )
+from ..utils import profiling
 from . import state_core
 
 __all__ = [
@@ -164,6 +165,8 @@ def _eigh_psd_mat(a):
     """PSD projection of Hermitian matrices: eigh, eigenvalues floored at
     1e-12, recomposed."""
     evals, evecs = torch.linalg.eigh(a)
+    if a.is_cuda:  # the error check reads the card's info back
+        profiling.count("host_sync")
     evals = evals.clamp(min=_CP_EPS)
     return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
 
@@ -312,25 +315,33 @@ def _dykstra_run(x, p, q, n_steps: int, chunk: int, tol, cp: str, ns_iter: int):
     read on the host, and the run ends once it is not above `tol` (`tol`
     None: never read, all `n_steps` run). The 'eigh' engine steps in bloch
     space; the 'ns' engine steps on the matrices and maps back at the end.
-    Returns (x, p, q, crit) in bloch space."""
-    if cp == "ns":
-        n2 = 2 * _n_from_d2(x.shape[-1])
-        state = tuple(bloch_to_matrix(v, n2) for v in (x, p, q))
-        step = functools.partial(_dykstra_step_mat, ns_iter=ns_iter, scale=1.0 / 2**n2)
-    else:
-        state = (x, p, q)
-        step = _dykstra_step
-    crit = torch.full((), math.inf, dtype=x.dtype, device=x.device)
-    done = 0
-    while done < n_steps:
-        for _ in range(min(chunk, n_steps - done)):
-            *state, crit = step(*state)
-        done += chunk
-        if tol is not None and float(crit) <= tol:
-            break
-    if cp == "ns":
-        state = tuple(matrix_to_bloch(v) for v in state)
-    return (*state, crit)
+    Returns (x, p, q, crit) in bloch space. Its span `qt.dykstra` counts
+    the steps run (`iters`)."""
+    with profiling.span("qt.dykstra", x.device):
+        if cp == "ns":
+            n2 = 2 * _n_from_d2(x.shape[-1])
+            state = tuple(bloch_to_matrix(v, n2) for v in (x, p, q))
+            step = functools.partial(_dykstra_step_mat, ns_iter=ns_iter, scale=1.0 / 2**n2)
+        else:
+            state = (x, p, q)
+            step = _dykstra_step
+        crit = torch.full((), math.inf, dtype=x.dtype, device=x.device)
+        done = 0
+        while done < n_steps:
+            steps = min(chunk, n_steps - done)
+            for _ in range(steps):
+                *state, crit = step(*state)
+            profiling.count("iters", steps)
+            done += chunk
+            if tol is not None:
+                profiling.count("host_sync")
+                with profiling.span("qt.dykstra.read"):
+                    stop = float(crit) <= tol
+                if stop:
+                    break
+        if cp == "ns":
+            state = tuple(matrix_to_bloch(v) for v in state)
+        return (*state, crit)
 
 
 def _dykstra_chunk(x, p, q, n_steps: int, cp: str = "eigh", ns_iter: int = 19):
@@ -495,8 +506,11 @@ def estimate_lifp_factored(
     w = state_core.weighted_povm_flat(as_real(povm_matrix, like=counts), n_measurements)
     d1 = b.shape[-1]  # 4^n, also the probability trace scale
     freq = _frequencies(counts)  # (..., S, K)
-    b_pinv = torch.linalg.solve(b.T @ b, b.T)  # (D1, S)
-    w_pinv = torch.linalg.solve(w.T @ w, w.T).T  # (K, D1)
+    with profiling.span("qt.lin.solve"):
+        b_pinv = torch.linalg.solve(b.T @ b, b.T)  # (D1, S)
+        w_pinv = torch.linalg.solve(w.T @ w, w.T).T  # (K, D1)
+        if b.is_cuda:  # each error check reads the card's info back
+            profiling.count("host_sync", 2)
     choi_mat = b_pinv @ (freq @ w_pinv) / d1
     choi_bloch = choi_mat.reshape(tuple(choi_mat.shape[:-2]) + (d1 * d1,))
     if cptp:

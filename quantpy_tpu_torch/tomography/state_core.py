@@ -24,6 +24,7 @@ from ..ops.cholesky import matrix_to_real_tril_vec, real_tril_vec_to_matrix
 from ..ops.lbfgs import lbfgs_minimize
 from ..ops.paulis import PTM_MAX_QUBITS, bloch_to_matrix, matrix_to_bloch, n_qubits_from_dim
 from ..ops.sampling import sample_multinomial
+from ..utils import profiling
 
 __all__ = [
     "weighted_povm_flat",
@@ -70,9 +71,10 @@ def simulate_experiment(generator, povm_matrix, bloch, n_measurements):
     Returns counts of shape (batch..., m, p) on the device of `bloch`;
     `generator` must live there too.
     """
-    probs = experiment_probabilities(povm_matrix, bloch)
-    n = as_real(n_measurements, like=probs).expand(probs.shape[:-1])
-    return sample_multinomial(generator, n, probs)
+    with profiling.span("qt.sample"):
+        probs = experiment_probabilities(povm_matrix, bloch)
+        n = as_real(n_measurements, like=probs).expand(probs.shape[:-1])
+        return sample_multinomial(generator, n, probs)
 
 
 def make_feasible_bloch(bloch, n_qubits: int):
@@ -80,6 +82,8 @@ def make_feasible_bloch(bloch, n_qubits: int):
     renormalize the trace. Batched; real in, real out."""
     rho = bloch_to_matrix(bloch, n_qubits)
     evals, evecs = torch.linalg.eigh(rho)
+    if rho.is_cuda:  # the error check reads the card's info back
+        profiling.count("host_sync")
     evals = evals.clamp(min=1e-15)
     evals = evals / evals.sum(-1, keepdim=True)
     rho = (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
@@ -96,16 +100,20 @@ def estimate_lin(counts, povm_matrix, n_measurements, physical: bool = True):
     leading axes of `counts`. Returns bloch vectors (..., D)."""
     counts = as_real(counts)
     n_qubits = _n_qubits_of_povm(povm_matrix)
-    a = weighted_povm_flat(as_real(povm_matrix, like=counts), n_measurements)
-    freq = _frequencies(counts)
-    gram = a.T @ a
-    rhs = freq @ a
-    dim2 = a.shape[-1]
-    # one factorization of the Gram matrix for every right-hand side
-    sol = torch.linalg.solve(gram, rhs.reshape(-1, dim2).T).T
-    bloch = sol.reshape(rhs.shape) / (2**n_qubits)
+    with profiling.span("qt.lin.solve"):
+        a = weighted_povm_flat(as_real(povm_matrix, like=counts), n_measurements)
+        freq = _frequencies(counts)
+        gram = a.T @ a
+        rhs = freq @ a
+        dim2 = a.shape[-1]
+        # one factorization of the Gram matrix for every right-hand side
+        sol = torch.linalg.solve(gram, rhs.reshape(-1, dim2).T).T
+        if gram.is_cuda:  # the error check reads the card's info back
+            profiling.count("host_sync")
+        bloch = sol.reshape(rhs.shape) / (2**n_qubits)
     if physical:
-        bloch = make_feasible_bloch(bloch, n_qubits)
+        with profiling.span("qt.lin.clip"):
+            bloch = make_feasible_bloch(bloch, n_qubits)
     return bloch
 
 
@@ -203,6 +211,7 @@ def _rhor_iterate(r_of, bloch0, n_qubits: int, max_iter: int, tol: float):
     bloch = bloch0
     for _ in range(int(max_iter)):
         new = _rhor_update(bloch, r_of(bloch), n_qubits)
+        profiling.count("host_sync")
         delta = float((new - bloch).abs().max())
         bloch = new
         if not delta > tol:

@@ -10,15 +10,25 @@ non-zero exit code, and nothing falls back to the CPU:
 
 0. Device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi) and the torch and CUDA versions.
-1. Build both RrhoR kernels from quantpy_tpu_torch/csrc/ with nvcc
-   (sm_90a), one nvcc per source, started together.
+1. Build both RrhoR kernels and the PSD projection kernel from
+   quantpy_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per source,
+   started together.
 2. Each kernel (rhor_mle, the lane kernel; rhor_mle_flat, the flat-matrix
    kernel) against its plain PyTorch version on identical CUDA inputs
    (n = 1, 2, 3, 4, 5, 6 in float32, n = 2, 4 in float64, ragged batches,
    40 iterations), the two plain versions against each other in float64,
    then each kernel and its plain version timed in turns at the flagship
    shape (B = 16384, K = 1296, D = 256, 60 iterations) with CUDA events,
-   beside the least time the card could take (`bound_ms`).
+   beside the least time the card could take (`bound_ms`). Then the PSD
+   projection kernel (psd_project: batched Jacobi, eigenvalue floor and
+   recomposition), called through its wrapper, against its plain version
+   and torch.linalg.eigh's projection on random Hermitian complex64
+   batches (d = 4, 16, 64; batches 1, 64, 4,096) and on a Dykstra step's
+   input (64 Choi matrices of 64 x 64, near depolarizing(0.1, 3)), then
+   timed on that input with CUDA events, best of 4, beside its bound (the
+   least work of the function: Householder tridiagonalisation, the
+   eigenvectors' back-transformation and the Hermitian recomposition), its
+   plain version and the eigh projection (`library_ms`).
 3. Main path: StateTomograph(GHZ(4)) built without device=, so on the
    default device, which must be "cuda"; a 10^4-shot proj-set experiment,
    the RrhoR point estimate (a single experiment: the plain loop, which
@@ -57,7 +67,9 @@ non-zero exit code, and nothing falls back to the CPU:
    devices, float64 operations and kernel launches (none), each resampled
    Choi matrix checked for TP and CP, its rate, stage times, peak memory,
    idle share and the projection's TFLOP/s; and a 3-qubit 64-resample
-   bootstrap on the 'eigh' engine (time and peak memory only).
+   bootstrap on the 'eigh' engine: time, peak memory, and its psd_project
+   launches, counted from 0 and held to one per Dykstra step (the kernels
+   line's psd_project launches).
 9. The analytic confidence intervals on the card (no kernel of their own):
    (a) every interval of the slice (moment, Sugiyama, moment-fidelity,
    polytope on all three LP paths, Holder), count_delta and the coverage
@@ -161,7 +173,7 @@ non-zero exit code, and nothing falls back to the CPU:
    and two_prod exact against float64, df_div_ff within 2^-40, sum2f within
    one float32 ulp of the float64 sum, the pair conversions exact. Phases
    3, 5, 8, 11, 12, 13 and 14's counted launches make the kernels line's
-   counts.
+   counts (psd_project's: phase 8's 'eigh' bootstrap alone).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -192,6 +204,8 @@ CHECK_ITERS = 40
 TOL = {"float32": 5e-5, "float64": 1e-10}  # kernel vs plain, max |delta bloch|
 TRACE_TOL = 1e-6  # out[:, 0] == 1/d
 KERNELS = ("rhor_mle", "rhor_mle_flat")
+PSD_KERNEL = "psd_project"
+PSD_BATCH, PSD_DIM = 64, 64  # a Dykstra step of the 3-qubit 64-resample interval
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 and FP64 outside
 # the tensor cores, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -233,6 +247,7 @@ PROC_NLL_REL = 1e-5
 PROC_TP_TOL = 5e-2
 PROC_MIN_EIG = -1e-4
 STATES_RHOR_LAUNCHES = 1  # rhor_mle launches of method='states' with 'mle-rhor' in float32
+PSD_LAUNCHES_PER_STEP = 1  # psd_project launches per Dykstra step of the 'eigh' row
 # Phase 9. The dense state row is phase 3's design (qubits, shots) with
 # PolytopeStateInterval's default n_points; the kron row is phase 7's GHZ-6
 # with the polytope at docs/benchmarks.md's measured n_points = 200; the
@@ -410,7 +425,8 @@ def log_idle_share(what, fn, wall_ms):
 def phase0_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
-    if not all((REPO / "quantpy_tpu_torch" / "csrc" / f"{k}.cu").is_file() for k in KERNELS):
+    if not all((REPO / "quantpy_tpu_torch" / "csrc" / f"{k}.cu").is_file()
+               for k in KERNELS + (PSD_KERNEL,)):
         raise SystemExit("chip_smoke: run from a checkout of the repository; no result")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -425,18 +441,20 @@ def phase0_device():
 def phase1_build():
     from quantpy_tpu_torch.ops import _build, kernels
 
-    log(f"[1] building {', '.join(k + '.cu' for k in KERNELS)} with {_build.nvcc_path()}")
+    names = KERNELS + (PSD_KERNEL,)
+    log(f"[1] building {', '.join(k + '.cu' for k in names)} with {_build.nvcc_path()}")
     nvcc_version = subprocess.run(
         [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[-1]
     log(f"    {nvcc_version}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.build, KERNELS))
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
     for name in KERNELS:
         kernels._library(name)
-    log(f"    build + load of both: {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    kernels._psd_library()
+    log(f"    build + load of all three: {time.perf_counter() - t0:.2f} s")
+    for name in names:
         seconds, output = _build.build_log.get(name, (0.0, ""))
         log(f"    {name}: nvcc {seconds:.2f} s")
         for line in output.splitlines():
@@ -561,6 +579,85 @@ def phase2_kernel_vs_plain():
                                    "bound_share": bound["bound_ms"] / kernel_ms,
                                    "library_ms": None}
     return measured
+
+
+def _psd_eigh_projection(a):
+    """The eigh projection that process_core runs where the kernel does
+    not: torch.linalg.eigh, eigenvalues floored at 1e-12, recomposed."""
+    evals, evecs = torch.linalg.eigh(a)
+    evals = evals.clamp(min=1e-12)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+def _psd_step_batch(seed):
+    """A Dykstra step's CP input: PSD_BATCH Choi matrices of
+    depolarizing(0.1, 3), each moved off the PSD cone by Hermitian noise,
+    complex64 on the card."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops.paulis import bloch_to_matrix
+
+    choi = torch.as_tensor(qtt.depolarizing(0.1, 3).choi.bloch, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(PSD_BATCH, PSD_DIM, PSD_DIM, dtype=torch.complex128, generator=gen)
+    a = bloch_to_matrix(choi[None], 6) + 0.02 * (x + x.conj().transpose(-1, -2))
+    return a.to(DEVICE, torch.complex64).contiguous()
+
+
+def phase2_psd_kernel():
+    """The PSD projection kernel against its plain version and the eigh
+    projection, then timed at a Dykstra step's shape; returns its row of
+    the kernels line."""
+    from quantpy_tpu_torch.ops import kernels
+
+    log("[2] psd_project against its plain version and torch.linalg.eigh's projection")
+    cases = []
+    for d in (4, 16, 64):
+        for batch in (1, 64, 4096):
+            gen = torch.Generator().manual_seed(d * batch)
+            x = torch.randn(batch, d, d, dtype=torch.complex64, generator=gen).to(DEVICE)
+            cases.append((f"random d={d:2d} B={batch:4d}", x + x.conj().transpose(-1, -2)))
+    step = _psd_step_batch(seed=64)
+    cases.append((f"Dykstra step d={PSD_DIM} B={PSD_BATCH}", step))
+    worst = 0.0
+    for name, a in cases:
+        out = kernels.psd_project(a)
+        sweeps = torch.zeros(a.shape[0], dtype=torch.int32, device=DEVICE)
+        kernels._psd_launch(a, sweeps)
+        torch.cuda.synchronize()
+        scale = a.abs().amax((-2, -1), keepdim=True)
+        errs = [float(((out - ref).abs() / scale).max())
+                for ref in (kernels.psd_project_reference(a), _psd_eigh_projection(a))]
+        log(f"    {name}: sweeps {int(sweeps.min())}-{int(sweeps.max())} "
+            f"(cap {kernels.PSD_MAX_SWEEPS}), max|kernel-plain| {errs[0]:.3e}, "
+            f"max|kernel-eigh| {errs[1]:.3e} (relative to max|A|, limit {TOL['float32']:.0e})")
+        if not (max(errs) <= TOL["float32"] and int(sweeps.max()) < kernels.PSD_MAX_SWEEPS):
+            raise AssertionError(f"psd_project on {name}: {errs}, sweeps {int(sweeps.max())}")
+        worst = max(worst, *errs)
+
+    run_kernel = lambda: kernels.psd_project(step)  # noqa: E731
+    run_plain = lambda: kernels.psd_project_reference(step)  # noqa: E731
+    run_library = lambda: _psd_eigh_projection(step)  # noqa: E731
+    run_library()
+    kernel_ms, plain_ms = _in_turns(run_kernel, run_plain, 4)
+    library_ms = cuda_ms(run_library, 4)
+    # the least work of the function, whatever algorithm computes it:
+    # Householder reduction of each Hermitian matrix to tridiagonal form
+    # (16/3 d^3 flops), the reflectors applied to the tridiagonal's
+    # eigenvectors (8 d^3) and the Hermitian product V diag(l) V^H (4 d^3);
+    # the tridiagonal eigensolve, whose work depends on deflation, is left
+    # out. 2 d^2 complex64 in and out.
+    d = PSD_DIM
+    flops = PSD_BATCH * (16 / 3 + 8 + 4) * d**3
+    ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    bytes_ms = 2 * step.numel() * step.element_size() / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"    Dykstra step shape B={PSD_BATCH} d={d} complex64: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, eigh projection (library) {library_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 67 TFLOP/s), kernel at "
+        f"{bound_ms / kernel_ms:.3f} of the bound")
+    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": bound_ms / kernel_ms, "library_ms": library_ms}
 
 
 def _bound(freq, bloch0, w2, macs, dtype_name):
@@ -1363,36 +1460,54 @@ def _process_flagship(card):
 
 def _process_eigh_row(card):
     """Phase 8, part 5: a bootstrap on the 'eigh' engine (the default below
-    4 qubits), one batched eigh per Dykstra iteration; time and peak memory
-    only."""
+    4 qubits), one psd_project launch per Dykstra iteration; time, peak
+    memory and the launches, held to the steps. Returns the launches."""
     import numpy as np
 
     import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import process_core
 
     n, shots, n_points = PROC_EIGH_ROW
     tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=5)
     tmg.experiment(shots)
     ms_point = cuda_ms(lambda: tmg.point_estimate("lifp"), 1)
     interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=6)
+    steps = []
+    step = process_core._dykstra_step
+    process_core._dykstra_step = lambda *args: steps.append(1) or step(*args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(interval.setup, 1)
+    kernels.psd_project.launches = 0
+    try:
+        ms = cuda_ms(interval.setup, 1)
+    finally:
+        process_core._dykstra_step = step
+    launches = kernels.psd_project.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if not (steps and launches == PSD_LAUNCHES_PER_STEP * len(steps)):
+        raise AssertionError(f"the {n}-qubit 'eigh' bootstrap ran {len(steps)} Dykstra steps "
+                             f"and {launches} psd_project launches, not "
+                             f"{PSD_LAUNCHES_PER_STEP} per step")
     if not np.all(np.isfinite(interval.distances)):
         raise AssertionError(f"{n}-qubit process bootstrap distances are not finite")
     log(f"    {n}-qubit process bootstrap on the 'eigh' engine ({n_points} resamples, {shots} "
         f"shots, up to 2000 Dykstra iterations of a batched {4**n}-dim eigh): "
         f"point_estimate('lifp') {ms_point:.1f} ms, bootstrap {ms:.1f} ms = "
         f"{n_points / ms * 1e3:.3f} resamples/s, median hs "
-        f"{float(np.median(interval.distances)):.4e}, peak memory {peak_mib:.1f} MiB on {card}")
+        f"{float(np.median(interval.distances)):.4e}, peak memory {peak_mib:.1f} MiB on {card}; "
+        f"{len(steps)} Dykstra steps, psd_project launches {launches}")
+    return launches
 
 
 def phase8_process(card):
+    """Returns (rhor_mle launches, the flagship's tomograph, psd_project
+    launches of the 'eigh' bootstrap)."""
     log("[8] process tomography on the card")
     launches = _process_small_checks()
     tmg = _process_flagship(card)
-    _process_eigh_row(card)
-    return launches, tmg
+    psd_launches = _process_eigh_row(card)
+    return launches, tmg, psd_launches
 
 
 def _interval_twins(tmg):
@@ -3592,12 +3707,13 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     phase1_build()
     measured = phase2_kernel_vs_plain()
+    measured[PSD_KERNEL] = phase2_psd_kernel()
     tmg, est, launches = phase3_main_path(card)
     rate_ms = phase4_rate(card, tmg, est)
     flat_launches = phase5_flat_path(card, tmg, est)
     phase6_cholesky_mle(card)
     phase7_kron(card)
-    process_launches, process_tmg = phase8_process(card)
+    process_launches, process_tmg, psd_launches = phase8_process(card)
     launches += process_launches
     phase9_intervals(card)
     phase10_mcmc(card, tmg, est, process_tmg)
@@ -3610,6 +3726,7 @@ def main() -> int:
     sources = {
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),
+        PSD_KERNEL: ("none: process_core._eigh_psd_mat's eigh, batched", psd_launches),
     }
     kernels_line = {"kernels": [
         {

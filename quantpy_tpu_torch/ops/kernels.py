@@ -1,4 +1,5 @@
-"""The fused RrhoR MLE kernels and their plain PyTorch versions.
+"""The fused RrhoR MLE kernels, the PSD projection kernel, and their plain
+PyTorch versions.
 
 `rhor_mle` and `rhor_mle_flat` each run `n_iter` fixed RrhoR iterations
 for a batch of resamples and reach the same fixed point. On CUDA tensors
@@ -23,6 +24,12 @@ The flat kernel keeps the Hermitian density matrix folded to its D real
 entries (`_fold`, `_unfold`), and the POVM operands with it
 (`_flat_fold_operands`), so its two POVM products are K x D like the lane
 kernel's; `_rhor_mle_flat_folded` states its iteration in plain PyTorch.
+
+`psd_project` is the PSD projection of a batch of Hermitian matrices up to
+64 x 64 (eigendecomposition, eigenvalues floored at 1e-12, recomposition):
+on CUDA complex64 tensors it launches the batched Jacobi kernel of
+`csrc/psd_project.cu`, which replaces no TPU kernel; on CPU tensors it runs
+`psd_project_reference`, the same sweeps in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 from ..utils import profiling
 from .paulis import PTM_MAX_QUBITS, _pauli_transfer_np
 
-__all__ = ["rhor_mle", "rhor_mle_flat", "rhor_mle_flat_reference", "rhor_mle_reference"]
+__all__ = ["psd_project", "psd_project_reference", "rhor_mle", "rhor_mle_flat",
+           "rhor_mle_flat_reference", "rhor_mle_reference"]
 
 EPS = 1e-10
 
@@ -440,3 +448,176 @@ def _count_launch(wrapper):
     launch from worker threads."""
     with _launch_lock:
         wrapper.launches += 1
+
+
+# -- PSD projection -------------------------------------------------------------
+
+PSD_MAX_DIM = 64  # the largest matrix one block of the kernel holds in shared memory
+PSD_MAX_SWEEPS = 40  # csrc/psd_project.cu's kMaxSweeps
+PSD_FLOOR = 1e-12  # eigenvalue floor: process_core._CP_EPS
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_rounds(m: int):
+    """(p, q), each an (m - 1, m / 2) int64 array for an even m: the pairs of
+    each round of the parallel round-robin ordering, p < q. Pair 0 of round
+    r is (r, m - 1), pair k > 0 is ((r + k) mod (m - 1), (r - k) mod (m - 1)),
+    so that a sweep of m - 1 rounds meets every pair once."""
+    r = np.arange(m - 1)[:, None]
+    k = np.arange(m // 2)[None, :]
+    a = np.where(k == 0, r, (r + k) % (m - 1))
+    b = np.where(k == 0, m - 1, (r - k) % (m - 1))
+    return np.minimum(a, b), np.maximum(a, b)
+
+
+def _jacobi_round(a, v, p, q):
+    """One round of complex Jacobi rotations on the disjoint pairs (p, q),
+    in place: A <- J^H A J, V <- V J, with the pivots set exactly.
+
+    J = [[c, s e], [-s conj(e), c]] with e = a_pq / |a_pq| and (c, s) the
+    real rotation of [[a_pp, |a_pq|], [|a_pq|, a_qq]] (Golub and Van Loan,
+    sym.schur2). It is applied in Rutishauser's form, with r = s / (1 + c)
+    and c = 1 - s r: columns x - s (r x + conj(e) y) and y + s (e x - r y),
+    rows x - s (r x + e y) and y + s (conj(e) x - r y). A small rotation
+    then changes an entry by its own correction: written with c, which
+    rounds to 1 below s^2 ~ eps, it would grow each column's norm by up to
+    eps / 4 per rotation, hundreds of times a sweep."""
+    app, aqq, x = a[:, p, p].real, a[:, q, q].real, a[:, p, q]
+    absx = x.abs()
+    nz = absx > 0
+    safe = torch.where(nz, absx, torch.ones_like(absx))
+    tau = (aqq - app) / (2 * safe)
+    t = torch.copysign(torch.ones_like(tau), tau) / (tau.abs() + torch.sqrt(1 + tau * tau))
+    t = torch.where(nz, t, torch.zeros_like(t))
+    c = 1 / torch.sqrt(1 + t * t)
+    s = t * c
+    r = (s / (1 + c)).to(a.dtype)
+    s = s.to(a.dtype)
+    e = torch.complex(x.real / safe, x.imag / safe)  # a complex division loses denormal x
+    rp, rq = a[:, p, :], a[:, q, :]
+    s_, r_, e_ = s[..., None], r[..., None], e[..., None]
+    a[:, p, :] = rp - s_ * (r_ * rp + e_ * rq)
+    a[:, q, :] = rq + s_ * (e_.conj() * rp - r_ * rq)
+    s_, r_, e_ = s[:, None, :], r[:, None, :], e[:, None, :]
+    for w in (a, v):
+        cp, cq = w[:, :, p], w[:, :, q]
+        w[:, :, p] = cp - s_ * (r_ * cp + e_.conj() * cq)
+        w[:, :, q] = cq + s_ * (e_ * cp - r_ * cq)
+    a[:, p, p] = (app - t * absx).to(a.dtype)
+    a[:, q, q] = (aqq + t * absx).to(a.dtype)
+    a[:, p, q] = 0
+    a[:, q, p] = 0
+
+
+def _psd_jacobi(a):
+    """(evals (B, d), evecs (B, d, d), sweeps) of the Hermitian matrices
+    whose lower triangles `a` (B, d, d) holds, by the kernel's cyclic Jacobi
+    sweeps: the same ordering, rotations and stop (a sweep begins only while
+    some matrix's off-diagonal Frobenius norm is above eps ||A||_F, eps of
+    the dtype), for the whole batch at once."""
+    b, d = a.shape[0], a.shape[-1]
+    m = d + d % 2
+    eps = torch.finfo(a.real.dtype).eps
+    diag = torch.diag_embed(a.diagonal(dim1=-2, dim2=-1).real.to(a.dtype))
+    low = torch.tril(a, -1)
+    w = torch.zeros(b, m, m, dtype=a.dtype, device=a.device)
+    w[:, :d, :d] = low + low.conj().transpose(-1, -2) + diag
+    v = torch.eye(m, dtype=a.dtype, device=a.device).expand(b, m, m).clone()
+    off_mask = ~torch.eye(m, dtype=torch.bool, device=a.device)
+    limit = eps * eps * w.abs().square().sum((-2, -1))
+    rounds = [(torch.as_tensor(p, device=a.device), torch.as_tensor(q, device=a.device))
+              for p, q in zip(*_jacobi_rounds(m))]
+    sweeps = 0
+    while sweeps < PSD_MAX_SWEEPS:
+        off = (w.abs().square() * off_mask).sum((-2, -1))
+        if bool((off <= limit).all()):
+            break
+        for p, q in rounds:
+            _jacobi_round(w, v, p, q)
+        sweeps += 1
+    return w.diagonal(dim1=-2, dim2=-1).real[:, :d], v[:, :d, :d], sweeps
+
+
+def psd_project_reference(a):
+    """Plain PyTorch PSD projection, the same math as the kernel: the cyclic
+    Jacobi sweeps of `_psd_jacobi`, the eigenvalues floored at 1e-12, and
+    V diag(max(lambda, 1e-12)) V^H. a (B, d, d) complex64 or complex128;
+    its lower triangle is read."""
+    evals, evecs, _ = _psd_jacobi(a)
+    evals = evals.clamp(min=PSD_FLOOR)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+def _check_psd(a):
+    if not isinstance(a, torch.Tensor):
+        raise TypeError("a must be a torch.Tensor")
+    if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"a must be (B, d, d), got shape {tuple(a.shape)}")
+    if not 1 <= a.shape[-1] <= PSD_MAX_DIM:
+        raise ValueError(f"psd_project takes 1 <= d <= {PSD_MAX_DIM}, got d = {a.shape[-1]}")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    if a.device.type == "cuda":
+        if a.dtype != torch.complex64:
+            raise TypeError(f"the kernel takes complex64, got {a.dtype}")
+    elif a.device.type == "cpu":
+        if a.dtype not in (torch.complex64, torch.complex128):
+            raise TypeError(f"a must be complex64 or complex128, got {a.dtype}")
+    else:
+        raise ValueError(f"psd_project runs on cpu or cuda tensors, got {a.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _psd_library():
+    """Build and load csrc/psd_project.cu; declare its C signatures."""
+    from . import _build
+
+    lib = _build.load("psd_project")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.psd_project_c64.argtypes = [p, p, p, i, i, p]
+    lib.psd_project_c64.restype = i
+    lib.psd_project_error_string.argtypes = [i]
+    lib.psd_project_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _psd_launch(a, sweeps=None):
+    """Launch csrc/psd_project.cu on the current stream of a's device and
+    return the output; `sweeps`, an int32 (B,) tensor on that device, gets
+    the sweeps each matrix ran."""
+    lib = _psd_library()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = lib.psd_project_c64(
+            a.data_ptr(), out.data_ptr(), None if sweeps is None else sweeps.data_ptr(),
+            a.shape[0], a.shape[-1], torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"psd_project kernel launch failed: {lib.psd_project_error_string(err).decode()}")
+    return out
+
+
+def psd_project(a):
+    """PSD projection of a batch of Hermitian matrices: their
+    eigendecomposition, the eigenvalues floored at 1e-12, and
+    V diag(max(lambda, 1e-12)) V^H, one output per input.
+
+    a (B, d, d), contiguous, 1 <= d <= 64; its lower triangle is read, as
+    `torch.linalg.eigh` reads it. On CUDA (complex64 only) it launches the
+    Jacobi kernel on the current stream without synchronizing and adds one
+    to `psd_project.launches`; on the CPU (complex64 or complex128) it runs
+    `psd_project_reference`.
+    """
+    _check_psd(a)
+    if a.device.type == "cpu":
+        return psd_project_reference(a)
+    if a.shape[0] == 0:
+        return torch.empty_like(a)
+    out = _psd_launch(a)
+    _count_launch(psd_project)
+    profiling.count("launches")
+    return out
+
+
+psd_project.launches = 0

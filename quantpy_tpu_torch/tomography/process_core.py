@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import as_real, complex_dtype, rdtype
+from ..ops import kernels
 from ..ops.paulis import (
     bloch_to_matrix,
     matrix_to_bloch,
@@ -162,13 +163,25 @@ def tp_project_bloch(choi_bloch):
 
 
 def _eigh_psd_mat(a):
-    """PSD projection of Hermitian matrices: eigh, eigenvalues floored at
-    1e-12, recomposed."""
-    evals, evecs = torch.linalg.eigh(a)
-    if a.is_cuda:  # the error check reads the card's info back
-        profiling.count("host_sync")
-    evals = evals.clamp(min=_CP_EPS)
-    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+    """PSD projection of Hermitian matrices (their lower triangles): eigh,
+    eigenvalues floored at 1e-12, recomposed.
+
+    A complex64 batch on the card of matrices up to 64 x 64 (the Choi
+    matrices of 1-3 qubits) goes to `kernels.psd_project`, which does all
+    three in one launch and reads nothing back; everything else (4 qubits,
+    complex128, the CPU) to `torch.linalg.eigh`, whose error check on the
+    card is one `host_sync`. The span `qt.psd` counts the routes:
+    `launches` and `eigh`."""
+    with profiling.span("qt.psd", a.device):
+        d = a.shape[-1]
+        if a.is_cuda and a.dtype == torch.complex64 and d <= kernels.PSD_MAX_DIM:
+            return kernels.psd_project(a.reshape(-1, d, d).contiguous()).reshape(a.shape)
+        profiling.count("eigh")
+        evals, evecs = torch.linalg.eigh(a)
+        if a.is_cuda:  # the error check reads the card's info back
+            profiling.count("host_sync")
+        evals = evals.clamp(min=_CP_EPS)
+        return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
 
 
 def cp_project_bloch(choi_bloch):

@@ -30,12 +30,14 @@ The program's spans, outermost first:
 - `qt.sample` (`state_core.simulate_experiment`); `qt.lin.solve` and
   `qt.lin.clip` (the Gram solves and the eigenvalue clip of linear
   inversion); `qt.rhor` (a launch of the RrhoR kernel); `qt.dykstra` (a
-  Dykstra projection) with `qt.dykstra.read` (each read of its criterion).
+  Dykstra projection) with `qt.dykstra.read` (each read of its criterion)
+  and `qt.psd` (each PSD projection of its CP half).
 
 Counters: `host_sync` (each point where the host waits for the card: a
 read of a tensor's value, an upload from host memory, the error check of
 a `torch.linalg` call on the card), `launches` (kernel launches, on
-`qt.rhor`) and `iters` (Dykstra steps run, on `qt.dykstra`).
+`qt.rhor` and `qt.psd`), `eigh` (PSD projections by `torch.linalg.eigh`,
+on `qt.psd`) and `iters` (Dykstra steps run, on `qt.dykstra`).
 
 Only a span opened with `device_range=True` (the mesh's shards) is also a
 `record_function` annotation with a device-side range: the profiler gives

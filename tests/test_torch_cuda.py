@@ -1,5 +1,5 @@
-"""The RrhoR kernels on the card against their plain versions, and the
-paths without a kernel (Cholesky MLE, kron chains, process tomography, the
+"""The RrhoR kernels and the PSD projection kernel on the card against
+their plain versions, and the paths without a kernel (Cholesky MLE, kron chains, process tomography, the
 analytic intervals' moments, linear programs and coverage harness, the MCMC
 chains' targets, drifts and steps) on the card against the CPU; the console
 entry points and the utilities on the card.
@@ -687,3 +687,78 @@ def test_chain_sampler_on_the_card(cuda):
     via_kernel = kernels.rhor_mle(freq, bloch0, a2, 40)
     via_plain = kernels.rhor_mle_reference(freq, bloch0, a2, 40)
     assert float((via_kernel - via_plain).abs().max()) <= TOL[torch.float32]
+
+
+# -- the PSD projection kernel (csrc/psd_project.cu) -----------------------------
+
+
+def _hermitian_batch(device, d, batch, seed):
+    """Random Hermitian complex64 matrices, Hermitian only up to rounding."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, d, d, dtype=torch.complex64, generator=gen)
+    return ((x + x.conj().transpose(-1, -2)) + 1e-7 * x).to(device)
+
+
+def _eigh_projection(a):
+    evals, evecs = torch.linalg.eigh(a)
+    evals = evals.clamp(min=1e-12)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 4096])
+@pytest.mark.parametrize("d", [4, 16, 64])
+def test_psd_kernel_matches_plain_and_eigh(cuda, d, batch):
+    a = _hermitian_batch(cuda, d, batch, seed=d + batch)
+    before = kernels.psd_project.launches
+    sweeps = torch.zeros(batch, dtype=torch.int32, device=cuda)
+    out = kernels._psd_launch(a, sweeps)
+    torch.cuda.synchronize()
+    assert int(sweeps.max()) < kernels.PSD_MAX_SWEEPS
+    scale = a.abs().amax((-2, -1), keepdim=True)
+    for ref in (kernels.psd_project_reference(a), _eigh_projection(a)):
+        assert float(((out - ref).abs() / scale).max()) <= TOL[torch.float32]
+    assert torch.equal(kernels.psd_project(a), out)
+    assert kernels.psd_project.launches == before + 1
+
+
+def test_psd_kernel_once_per_dykstra_step_of_the_three_qubit_interval(cuda, monkeypatch):
+    from quantpy_tpu_torch.tomography import process_core
+
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 3), input_states="sic", key=55,
+                               dtype=torch.float32)
+    tmg.experiment(1000, "proj-set")
+    tmg.point_estimate("lifp")
+    steps = []
+    step = process_core._dykstra_step
+    monkeypatch.setattr(process_core, "_dykstra_step",
+                        lambda *args: steps.append(1) or step(*args))
+    before = kernels.psd_project.launches
+    interval = qtt.BootstrapProcessInterval(tmg, n_points=64, cp_engine="eigh", key=3)
+    interval.setup()
+    torch.cuda.synchronize()
+    assert len(steps) >= 10
+    assert kernels.psd_project.launches - before == len(steps)
+    assert bool(torch.isfinite(torch.as_tensor(interval.distances)).all())
+
+
+@pytest.mark.parametrize("n, dtype", [(4, torch.float32), (3, torch.float64)])
+def test_psd_kernel_not_launched_for_four_qubits_or_complex128(cuda, n, dtype):
+    from quantpy_tpu_torch.tomography import process_core
+
+    choi = torch.as_tensor(qtt.depolarizing(0.1, n).choi.bloch, dtype=dtype, device=cuda)
+    before = kernels.psd_project.launches
+    proj = process_core.cp_project_bloch(choi[None] + 1e-3)
+    torch.cuda.synchronize()
+    assert kernels.psd_project.launches == before
+    assert proj.dtype == dtype and proj.device.type == "cuda"
+
+
+@pytest.mark.parametrize("bad", ["complex128", "d65", "strided"])
+def test_psd_kernel_raises_instead_of_falling_back(cuda, bad):
+    a = {
+        "complex128": torch.zeros(2, 16, 16, dtype=torch.complex128, device=cuda),
+        "d65": torch.zeros(2, 65, 65, dtype=torch.complex64, device=cuda),
+        "strided": torch.zeros(2, 16, 32, dtype=torch.complex64, device=cuda)[..., :16],
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.psd_project(a)

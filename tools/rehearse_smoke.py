@@ -80,6 +80,7 @@ def main() -> int:
     chip_smoke.PROC_MEDIAN_BAND = (0.05, 0.5)
     chip_smoke.PROC_EIGH_ROW = (1, 2_000, 8)
     chip_smoke.STATES_RHOR_LAUNCHES = 0
+    chip_smoke.PSD_LAUNCHES_PER_STEP = 0  # the CPU projects by eigh
     chip_smoke.ANALYTIC_STATE = (2, 3_000, 20)
     chip_smoke.ANALYTIC_KRON = (3, 2_000, 10)
     chip_smoke.ANALYTIC_CHANNEL = (2, 2_000, 10)

@@ -38,6 +38,7 @@ from ..config import as_real
 from ..ops.cholesky import real_tril_vec_to_matrix
 from ..ops.paulis import group_sizes
 from ..ops.sampling import sample_multinomial
+from ..utils import profiling
 from .bootstrap_core import _distance_batch
 from .state_core import (
     _NLL_EPS,
@@ -209,32 +210,33 @@ def kron_simulate_chunked(generator, povm1, bloch, n_shots, n_calls: int | None 
     and this function is for draws whose intermediates must stay small.
     """
     bloch = as_real(bloch)
-    povm1 = as_real(povm1, like=bloch)
-    n_qubits = int(round(math.log(bloch.shape[-1], 4)))
-    groups, factors = _grouped_factors(povm1, n_qubits)
-    f0 = factors[0]
-    m0 = f0.shape[0]
-    n_calls = m0 if n_calls is None else max(1, min(int(n_calls), m0))
-    block = -(-m0 // n_calls)
-    x = bloch.reshape((-1,) + tuple(4**g for g in groups))
+    with profiling.span("qt.kron.sample", bloch.device):
+        povm1 = as_real(povm1, like=bloch)
+        n_qubits = int(round(math.log(bloch.shape[-1], 4)))
+        groups, factors = _grouped_factors(povm1, n_qubits)
+        f0 = factors[0]
+        m0 = f0.shape[0]
+        n_calls = m0 if n_calls is None else max(1, min(int(n_calls), m0))
+        block = -(-m0 // n_calls)
+        x = bloch.reshape((-1,) + tuple(4**g for g in groups))
 
-    def draw(f0_rows):
-        probs = (_forward_chain([f0_rows] + factors[1:], x) * (2**n_qubits)).clamp(0.0, 1.0)
-        n_arr = torch.full(probs.shape[:-1], float(n_shots), dtype=probs.dtype,
-                           device=probs.device)
-        return sample_multinomial(generator, n_arr, probs)
+        def draw(f0_rows):
+            probs = (_forward_chain([f0_rows] + factors[1:], x) * (2**n_qubits)).clamp(0.0, 1.0)
+            n_arr = torch.full(probs.shape[:-1], float(n_shots), dtype=probs.dtype,
+                               device=probs.device)
+            return sample_multinomial(generator, n_arr, probs)
 
-    if block >= m0:
-        counts = draw(f0)
-    else:
-        rows = math.prod(f.shape[0] for f in factors[1:])
-        counts = None
-        for lo in range(0, m0, block):
-            part = draw(f0[lo : lo + block])
-            if counts is None:
-                counts = part.new_empty((x.shape[0], m0 * rows, part.shape[-1]))
-            counts[:, lo * rows : lo * rows + part.shape[1]] = part
-    return counts.reshape(tuple(bloch.shape[:-1]) + tuple(counts.shape[1:]))
+        if block >= m0:
+            counts = draw(f0)
+        else:
+            rows = math.prod(f.shape[0] for f in factors[1:])
+            counts = None
+            for lo in range(0, m0, block):
+                part = draw(f0[lo : lo + block])
+                if counts is None:
+                    counts = part.new_empty((x.shape[0], m0 * rows, part.shape[-1]))
+                counts[:, lo * rows : lo * rows + part.shape[1]] = part
+        return counts.reshape(tuple(bloch.shape[:-1]) + tuple(counts.shape[1:]))
 
 
 def kron_nll_tril(tril_vec, povm1, n_qubits: int, freq_flat, m_total: int):
@@ -256,6 +258,8 @@ def _grouped_gram_inv(povm1, groups):
     G1 = A1^T A1 the single-qubit Gram matrix of the flattened rows."""
     a1 = povm1.reshape(-1, povm1.shape[-1])
     g1 = torch.linalg.inv(a1.T @ a1)
+    if g1.is_cuda:  # the error check reads the card's info back
+        profiling.count("host_sync")
     out = []
     for g in groups:
         f = g1
@@ -288,14 +292,17 @@ def _lin_from_rhs(rhs, povm1, n_qubits: int, m_total: int, physical: bool):
     """Linear inversion from the adjoint of the frequencies, rhs (Z, 4^n):
     the inverse Gram factors per group, then the feasibility projection if
     `physical`."""
-    groups = group_sizes(n_qubits)
-    x = rhs.reshape((-1,) + tuple(4**g for g in groups))
-    for g_inv in _grouped_gram_inv(povm1, groups):
-        x = torch.tensordot(x, g_inv, dims=([1], [0]))
-    # undo the uniform weighting: A_w = A / M in the Gram (1/M^2) and rhs (1/M)
-    bloch = x.reshape(rhs.shape) * m_total / (2**n_qubits)
+    with profiling.span("qt.kron.lin.solve", rhs.device):
+        groups = group_sizes(n_qubits)
+        x = rhs.reshape((-1,) + tuple(4**g for g in groups))
+        for g_inv in _grouped_gram_inv(povm1, groups):
+            x = torch.tensordot(x, g_inv, dims=([1], [0]))
+        # undo the uniform weighting: A_w = A / M in the Gram (1/M^2) and rhs (1/M)
+        bloch = x.reshape(rhs.shape) * m_total / (2**n_qubits)
     if physical:
-        bloch = make_feasible_bloch(bloch, n_qubits)
+        with profiling.span("qt.kron.lin.clip", bloch.device):
+            profiling.count("eigh", bloch.shape[0])
+            bloch = make_feasible_bloch(bloch, n_qubits)
     return bloch
 
 
@@ -324,10 +331,13 @@ def kron_estimate_mle_rhor(
     bloch0 = _mixed_start(as_real(init_bloch, like=counts), dim, 0.05)
 
     def r_of(bloch):
+        profiling.count("iters")
         probs = kron_probs(povm1, n_qubits, bloch) / m_total
         return kron_apply_adjoint(povm1, n_qubits, freq / probs.clamp(min=_NLL_EPS)) * scale
 
-    return _rhor_iterate(r_of, bloch0, n_qubits, max_iter, tol)
+    with profiling.span("qt.kron.rhor", counts.device):
+        profiling.count("resamples", math.prod(bloch0.shape[:-1]))
+        return _rhor_iterate(r_of, bloch0, n_qubits, max_iter, tol)
 
 
 def _kron_bootstrap_chunk(
@@ -383,11 +393,14 @@ def kron_bootstrap_distances(
     m1, p1 = povm1.shape[0], povm1.shape[1]
     if chunk is None:
         chunk = max(1, min(n_points, CHUNK_COUNT_ENTRIES // (m1 * p1) ** n_qubits))
-    parts = [
-        _kron_bootstrap_chunk(
-            generator, bloch_est, povm1, n_qubits, n_shots, min(chunk, n_points - start),
-            method, dst, max_iter, physical, init,
-        )
-        for start in range(0, n_points, chunk)
-    ]
-    return torch.cat(parts)
+    with profiling.span("qt.kron.bootstrap", bloch_est.device):
+        profiling.count("resamples", n_points)
+        profiling.count("chunks", -(-n_points // chunk))
+        parts = [
+            _kron_bootstrap_chunk(
+                generator, bloch_est, povm1, n_qubits, n_shots, min(chunk, n_points - start),
+                method, dst, max_iter, physical, init,
+            )
+            for start in range(0, n_points, chunk)
+        ]
+        return torch.cat(parts)

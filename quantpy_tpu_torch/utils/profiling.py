@@ -31,13 +31,21 @@ The program's spans, outermost first:
   `qt.lin.clip` (the Gram solves and the eigenvalue clip of linear
   inversion); `qt.rhor` (a launch of the RrhoR kernel); `qt.dykstra` (a
   Dykstra projection) with `qt.dykstra.read` (each read of its criterion)
-  and `qt.psd` (each PSD projection of its CP half).
+  and `qt.psd` (each PSD projection of its CP half);
+- on the kron-factored design (`tomography/kron_core.py`):
+  `qt.kron.bootstrap` (a bootstrap over its chunks), `qt.kron.sample` (a
+  draw), `qt.kron.lin.solve` and `qt.kron.lin.clip` (the grouped Gram
+  inverses and the eigenvalue clip of linear inversion) and `qt.kron.rhor`
+  (an RrhoR loop).
 
 Counters: `host_sync` (each point where the host waits for the card: a
 read of a tensor's value, an upload from host memory, the error check of
 a `torch.linalg` call on the card), `launches` (kernel launches, on
 `qt.rhor` and `qt.psd`), `eigh` (PSD projections by `torch.linalg.eigh`,
-on `qt.psd`) and `iters` (Dykstra steps run, on `qt.dykstra`).
+on `qt.psd`; matrices clipped, on `qt.kron.lin.clip`), `iters` (Dykstra
+steps run, on `qt.dykstra`; RrhoR steps run, on `qt.kron.rhor`),
+`resamples` (on `qt.kron.bootstrap`, and on `qt.kron.rhor` the states of
+its batch) and `chunks` (on `qt.kron.bootstrap`).
 
 Only a span opened with `device_range=True` (the mesh's shards) is also a
 `record_function` annotation with a device-side range: the profiler gives

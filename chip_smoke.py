@@ -28,7 +28,15 @@ non-zero exit code, and nothing falls back to the CPU:
    timed on that input with CUDA events, best of 4, beside its bound (the
    least work of the function: Householder tridiagonalisation, the
    eigenvectors' back-transformation and the Hermitian recomposition), its
-   plain version and the eigh projection (`library_ms`).
+   plain version and the eigh projection (`library_ms`). Then the
+   eigenvalue clip kernel (psd_clip: cluster Jacobi, floor at 1e-15, unit
+   trace, first-order refinement) against its plain version and the
+   torch.linalg.eigh clip of make_feasible_bloch, and against a float64
+   clip beside the float32 eigh clip's error, on W-state-like 8-qubit
+   linear estimates (19 and 256 complex64 matrices of 256 x 256: a kron
+   bootstrap chunk and a whole interval's resamples), each timed with CUDA
+   events, best of 4 in turns (the plain version at 256 matrices of 2),
+   beside its bound (17.3 d^3 flops a matrix, as for psd_project).
 3. Main path: StateTomograph(GHZ(4)) built without device=, so on the
    default device, which must be "cuda"; a 10^4-shot proj-set experiment,
    the RrhoR point estimate (a single experiment: the plain loop, which
@@ -54,7 +62,10 @@ non-zero exit code, and nothing falls back to the CPU:
    6-qubit 256-resample MLE bootstrap of bench.py, audited, with its rate
    and idle share; bench.py's
    scaling rows (6, 8, 10, 11 qubits: simulate, lin and MLE-60 times, hs to
-   the truth, peak memory); bench.py's 10-qubit 16-resample bootstrap rate.
+   the truth, peak memory); bench.py's 10-qubit 16-resample bootstrap rate;
+   w8-rhor256's 8-qubit W-state bootstrap cut to 40 resamples ('mle-rhor'
+   from lin starts, three chunks), its psd_clip launches counted from 0
+   and held to one per chunk (the kernels line's psd_clip launches).
 
 8. Process tomography on the card (no kernel of its own): at 2 qubits in
    float64 all four estimators of ProcessTomograph(depolarizing(0.1, 2))
@@ -173,7 +184,8 @@ non-zero exit code, and nothing falls back to the CPU:
    and two_prod exact against float64, df_div_ff within 2^-40, sum2f within
    one float32 ulp of the float64 sum, the pair conversions exact. Phases
    3, 5, 8, 11, 12, 13 and 14's counted launches make the kernels line's
-   counts (psd_project's: phase 8's 'eigh' bootstrap alone).
+   counts (psd_project's: phase 8's 'eigh' bootstrap alone; psd_clip's:
+   phase 7's 8-qubit W-state bootstrap alone).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -206,6 +218,9 @@ TRACE_TOL = 1e-6  # out[:, 0] == 1/d
 KERNELS = ("rhor_mle", "rhor_mle_flat")
 PSD_KERNEL = "psd_project"
 PSD_BATCH, PSD_DIM = 64, 64  # a Dykstra step of the 3-qubit 64-resample interval
+CLIP_KERNEL = "psd_clip"
+# (matrices, d): a chunk of w8-rhor256's kron bootstrap, and its 256 resamples
+CLIP_SHAPES = ((19, 256), (256, 256))
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 and FP64 outside
 # the tensor cores, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -223,6 +238,11 @@ DEVICE = "cuda"
 # large MLE bootstrap (qubits, resamples)
 KRON_SCALING = (6, 8, 10, 11)
 KRON_BOOT = (10, 16)
+# w8-rhor256's kron bootstrap, cut to fewer resamples: qubits and resamples
+# (three of its chunks of 19); each chunk's lin starts clip in
+# CLIP_LAUNCHES_PER_CHUNK psd_clip launches
+KRON_CLIP_ROW = (8, 40)
+CLIP_LAUNCHES_PER_CHUNK = 1
 # an estimate's hs distance to the true state must stay under this (the JAX
 # package's TPU record is 0.0020-0.0035 at 6-11 qubits: a sanity band only)
 TRUTH_HS_LIMIT = 0.01
@@ -426,7 +446,7 @@ def phase0_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
     if not all((REPO / "quantpy_tpu_torch" / "csrc" / f"{k}.cu").is_file()
-               for k in KERNELS + (PSD_KERNEL,)):
+               for k in KERNELS + (PSD_KERNEL, CLIP_KERNEL)):
         raise SystemExit("chip_smoke: run from a checkout of the repository; no result")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -441,7 +461,7 @@ def phase0_device():
 def phase1_build():
     from quantpy_tpu_torch.ops import _build, kernels
 
-    names = KERNELS + (PSD_KERNEL,)
+    names = KERNELS + (PSD_KERNEL, CLIP_KERNEL)
     log(f"[1] building {', '.join(k + '.cu' for k in names)} with {_build.nvcc_path()}")
     nvcc_version = subprocess.run(
         [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
@@ -453,7 +473,8 @@ def phase1_build():
     for name in KERNELS:
         kernels._library(name)
     kernels._psd_library()
-    log(f"    build + load of all three: {time.perf_counter() - t0:.2f} s")
+    kernels._clip_library()
+    log(f"    build + load of all four: {time.perf_counter() - t0:.2f} s")
     for name in names:
         seconds, output = _build.build_log.get(name, (0.0, ""))
         log(f"    {name}: nvcc {seconds:.2f} s")
@@ -658,6 +679,79 @@ def phase2_psd_kernel():
     return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_share": bound_ms / kernel_ms, "library_ms": library_ms}
+
+
+def _eigh_clip(a):
+    """make_feasible_bloch's eigh clip: torch.linalg.eigh, eigenvalues
+    floored at 1e-15 and divided by their sum, recomposed."""
+    evals, evecs = torch.linalg.eigh(a)
+    evals = evals.clamp(min=1e-15)
+    evals = evals / evals.sum(-1, keepdim=True)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+def _w_like_states(batch, d, seed):
+    """(batch, d, d) complex128 on the card: the W state's density matrix
+    plus Hermitian noise whose spectrum spans about +-0.1, as the 8-qubit
+    linear estimates of w8-rhor256 do (half their eigenvalues negative)."""
+    n = int(round(math.log2(d)))
+    w = torch.zeros(d, dtype=torch.complex128)
+    w[[1 << k for k in range(n)]] = 1 / math.sqrt(n)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, d, d, dtype=torch.complex128, generator=gen)
+    noise = 0.1 / (2 * math.sqrt(2 * d)) * (x + x.conj().transpose(-1, -2))
+    return (torch.outer(w, w.conj()) + noise).to(DEVICE)
+
+
+def phase2_clip_kernel():
+    """The eigenvalue clip kernel against its plain version, the eigh clip
+    and float64, then timed; returns its row of the kernels line."""
+    from quantpy_tpu_torch.ops import kernels
+
+    log("[2] psd_clip against its plain version, the eigh clip and float64")
+    worst, timed = 0.0, {}
+    for batch, d in CLIP_SHAPES:
+        a64 = _w_like_states(batch, d, seed=batch)
+        a = a64.to(torch.complex64).contiguous()
+        out = kernels.psd_clip(a)
+        sweeps = torch.zeros(batch, dtype=torch.int32, device=DEVICE)
+        kernels._clip_launch(a, sweeps)
+        torch.cuda.synchronize()
+        scale = a.abs().amax((-2, -1), keepdim=True)
+        errs = [float(((out - ref).abs() / scale).max())
+                for ref in (kernels.psd_clip_reference(a), _eigh_clip(a))]
+        exact = _eigh_clip(a64)
+        err64 = float((out.to(torch.complex128) - exact).abs().max())
+        eigh64 = float((_eigh_clip(a).to(torch.complex128) - exact).abs().max())
+        log(f"    B={batch} d={d}: sweeps {int(sweeps.min())}-{int(sweeps.max())} "
+            f"(cap {kernels.PSD_MAX_SWEEPS}), max|kernel-plain| {errs[0]:.3e}, max|kernel-eigh| "
+            f"{errs[1]:.3e} (relative to max|A|, limit {TOL['float32']:.0e}); against float64: "
+            f"kernel {err64:.3e}, eigh {eigh64:.3e} (limit twice the eigh's)")
+        if not (max(errs) <= TOL["float32"] and int(sweeps.max()) < kernels.PSD_MAX_SWEEPS
+                and err64 <= 2 * eigh64):
+            raise AssertionError(f"psd_clip at B={batch} d={d}: {errs}, {err64} against {eigh64}")
+        worst = max(worst, *errs)
+
+        run_kernel = lambda: kernels.psd_clip(a)  # noqa: E731
+        run_plain = lambda: kernels.psd_clip_reference(a)  # noqa: E731
+        run_library = lambda: _eigh_clip(a)  # noqa: E731
+        run_library()
+        kernel_ms, plain_ms = _in_turns(run_kernel, run_plain, 4 if batch < 64 else 1)
+        kernel_ms = min(kernel_ms, cuda_ms(run_kernel, 4))
+        library_ms = cuda_ms(run_library, 4)
+        # the least work of the clip, as for psd_project: 17.3 d^3 flops a
+        # matrix; 2 d^2 complex64 in and out
+        flops = batch * (16 / 3 + 8 + 4) * d**3
+        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        bytes_ms = 2 * a.numel() * a.element_size() / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"    B={batch} d={d} complex64: kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"eigh clip (library) {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({flops / 1e9:.2f} GFLOP at 67 TFLOP/s), kernel at {bound_ms / kernel_ms:.4f} of the bound")
+        timed[batch] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                        "bound_share": bound_ms / kernel_ms, "library_ms": library_ms}
+    return {"max_abs_err": worst, **timed[CLIP_SHAPES[0][0]]}
 
 
 def _bound(freq, bloch0, w2, macs, dtype_name):
@@ -1159,6 +1253,7 @@ def _scaling_row(n, povm1, truth, gen):
 
 
 def phase7_kron(card):
+    """Returns the psd_clip launches of the W-state bootstrap row."""
     import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch.measurements import _single_qubit_preset
     from quantpy_tpu_torch.tomography import kron_core
@@ -1240,6 +1335,47 @@ def phase7_kron(card):
         f"{seconds:.3f} s = {n_points / seconds:.3f} resamples/s, median hs "
         f"{float(dists.median()):.4e} on {card}")
     log("    scaling rows: " + json.dumps({str(k): v for k, v in rows.items()}))
+    return _kron_clip_row(card, povm1, gen)
+
+
+def _kron_clip_row(card, povm1, gen):
+    """w8-rhor256's kron bootstrap at KRON_CLIP_ROW: the W state, 'mle-rhor'
+    from lin starts, kron_core's own chunks. Raises unless the lin starts
+    clip in CLIP_LAUNCHES_PER_CHUNK psd_clip launches a chunk; returns the
+    launches."""
+    import quantpy_tpu_torch as qtt
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import kron_core
+
+    n, n_points = KRON_CLIP_ROW
+    ket = torch.zeros(2**n, dtype=torch.complex128)
+    ket[[1 << k for k in range(n)]] = 1 / math.sqrt(n)
+    truth = qtt.Qobj(ket.numpy(), is_ket=True).bloch_tensor(povm1.device, povm1.dtype)
+    gen.manual_seed(120)
+    center = kron_core.kron_estimate_lin(kron_core.kron_simulate(gen, povm1, truth, N_SHOTS),
+                                         povm1, n)
+    # kron_bootstrap_distances' chunks when none is given
+    chunk = max(1, min(n_points, kron_core.CHUNK_COUNT_ENTRIES
+                       // (povm1.shape[0] * povm1.shape[1]) ** n))
+    chunks = -(-n_points // chunk)
+    torch.cuda.synchronize()
+    kernels.psd_clip.launches = 0
+    t0 = time.perf_counter()
+    dists = kron_core.kron_bootstrap_distances(
+        gen, center, povm1, n, N_SHOTS, n_points=n_points, method="mle-rhor", max_iter=MLE_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.psd_clip.launches
+    if not bool(torch.isfinite(dists).all()):
+        raise AssertionError(f"the {n}-qubit W-state bootstrap's distances are not finite")
+    if launches != CLIP_LAUNCHES_PER_CHUNK * chunks:
+        raise AssertionError(f"the {n}-qubit W-state bootstrap ran {chunks} chunks and {launches} "
+                             f"psd_clip launches, not {CLIP_LAUNCHES_PER_CHUNK} per chunk")
+    log(f"    {n}-qubit W-state bootstrap ('mle-rhor', {n_points} resamples in {chunks} chunks "
+        f"of up to {chunk}, RrhoR-{MLE_ITERS}): {seconds:.3f} s = {n_points / seconds:.1f} "
+        f"resamples/s, median hs {float(dists.median()):.4e} on {card}; psd_clip launches "
+        f"{launches}")
+    return launches
 
 
 def _process_small_checks():
@@ -3708,11 +3844,12 @@ def main() -> int:
     phase1_build()
     measured = phase2_kernel_vs_plain()
     measured[PSD_KERNEL] = phase2_psd_kernel()
+    measured[CLIP_KERNEL] = phase2_clip_kernel()
     tmg, est, launches = phase3_main_path(card)
     rate_ms = phase4_rate(card, tmg, est)
     flat_launches = phase5_flat_path(card, tmg, est)
     phase6_cholesky_mle(card)
-    phase7_kron(card)
+    clip_launches = phase7_kron(card)
     process_launches, process_tmg, psd_launches = phase8_process(card)
     launches += process_launches
     phase9_intervals(card)
@@ -3727,6 +3864,7 @@ def main() -> int:
         "rhor_mle": ("quantpy_tpu/ops/kernels.py:289", launches),
         "rhor_mle_flat": ("quantpy_tpu/ops/kernels.py:206", flat_launches),
         PSD_KERNEL: ("none: process_core._eigh_psd_mat's eigh, batched", psd_launches),
+        CLIP_KERNEL: ("none: state_core.make_feasible_bloch's eigh, batched", clip_launches),
     }
     kernels_line = {"kernels": [
         {

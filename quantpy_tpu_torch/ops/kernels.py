@@ -30,6 +30,13 @@ kernel's; `_rhor_mle_flat_folded` states its iteration in plain PyTorch.
 on CUDA complex64 tensors it launches the batched Jacobi kernel of
 `csrc/psd_project.cu`, which replaces no TPU kernel; on CPU tensors it runs
 `psd_project_reference`, the same sweeps in plain PyTorch.
+
+`psd_clip` is the eigenvalue clip of a batch of states of 65 to 256
+dimensions (eigendecomposition, eigenvalues floored at 1e-15 and divided by
+their sum, recomposition): on CUDA complex64 tensors it launches the
+cluster Jacobi kernel of `csrc/psd_clip.cu`, which replaces no TPU kernel;
+on CPU tensors it runs `psd_clip_reference`, the same sweeps in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ import torch
 from ..utils import profiling
 from .paulis import PTM_MAX_QUBITS, _pauli_transfer_np
 
-__all__ = ["psd_project", "psd_project_reference", "rhor_mle", "rhor_mle_flat",
-           "rhor_mle_flat_reference", "rhor_mle_reference"]
+__all__ = ["psd_clip", "psd_clip_reference", "psd_project", "psd_project_reference", "rhor_mle",
+           "rhor_mle_flat", "rhor_mle_flat_reference", "rhor_mle_reference"]
 
 EPS = 1e-10
 
@@ -494,34 +501,40 @@ def _jacobi_round(a, v, p, q):
     r = (s / (1 + c)).to(a.dtype)
     s = s.to(a.dtype)
     e = torch.complex(x.real / safe, x.imag / safe)  # a complex division loses denormal x
-    rp, rq = a[:, p, :], a[:, q, :]
+    rp, rq = a.index_select(1, p), a.index_select(1, q)
     s_, r_, e_ = s[..., None], r[..., None], e[..., None]
-    a[:, p, :] = rp - s_ * (r_ * rp + e_ * rq)
-    a[:, q, :] = rq + s_ * (e_.conj() * rp - r_ * rq)
+    a.index_copy_(1, p, rp - s_ * (r_ * rp + e_ * rq))
+    a.index_copy_(1, q, rq + s_ * (e_.conj() * rp - r_ * rq))
     s_, r_, e_ = s[:, None, :], r[:, None, :], e[:, None, :]
     for w in (a, v):
-        cp, cq = w[:, :, p], w[:, :, q]
-        w[:, :, p] = cp - s_ * (r_ * cp + e_.conj() * cq)
-        w[:, :, q] = cq + s_ * (e_ * cp - r_ * cq)
+        cp, cq = w.index_select(2, p), w.index_select(2, q)
+        w.index_copy_(2, p, cp - s_ * (r_ * cp + e_.conj() * cq))
+        w.index_copy_(2, q, cq + s_ * (e_ * cp - r_ * cq))
     a[:, p, p] = (app - t * absx).to(a.dtype)
     a[:, q, q] = (aqq + t * absx).to(a.dtype)
     a[:, p, q] = 0
     a[:, q, p] = 0
 
 
+def _hermitian_input(a):
+    """The Hermitian matrices whose lower triangles `a` holds, the diagonal
+    real, as `torch.linalg.eigh` reads them."""
+    low = torch.tril(a, -1)
+    return low + low.conj().transpose(-1, -2) + torch.diag_embed(
+        a.diagonal(dim1=-2, dim2=-1).real.to(a.dtype))
+
+
 def _psd_jacobi(a):
     """(evals (B, d), evecs (B, d, d), sweeps) of the Hermitian matrices
-    whose lower triangles `a` (B, d, d) holds, by the kernel's cyclic Jacobi
+    whose lower triangles `a` (B, d, d) holds, by the kernels' cyclic Jacobi
     sweeps: the same ordering, rotations and stop (a sweep begins only while
     some matrix's off-diagonal Frobenius norm is above eps ||A||_F, eps of
     the dtype), for the whole batch at once."""
     b, d = a.shape[0], a.shape[-1]
     m = d + d % 2
     eps = torch.finfo(a.real.dtype).eps
-    diag = torch.diag_embed(a.diagonal(dim1=-2, dim2=-1).real.to(a.dtype))
-    low = torch.tril(a, -1)
     w = torch.zeros(b, m, m, dtype=a.dtype, device=a.device)
-    w[:, :d, :d] = low + low.conj().transpose(-1, -2) + diag
+    w[:, :d, :d] = _hermitian_input(a)
     v = torch.eye(m, dtype=a.dtype, device=a.device).expand(b, m, m).clone()
     off_mask = ~torch.eye(m, dtype=torch.bool, device=a.device)
     limit = eps * eps * w.abs().square().sum((-2, -1))
@@ -548,13 +561,16 @@ def psd_project_reference(a):
     return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
 
 
-def _check_psd(a):
+def _check_batch(a, name: str, min_dim: int, max_dim: int):
+    """Raise unless `a` is what the kernel `name` takes: a contiguous
+    (B, d, d) batch with min_dim <= d <= max_dim, complex64 on the card,
+    complex64 or complex128 on the CPU."""
     if not isinstance(a, torch.Tensor):
         raise TypeError("a must be a torch.Tensor")
     if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"a must be (B, d, d), got shape {tuple(a.shape)}")
-    if not 1 <= a.shape[-1] <= PSD_MAX_DIM:
-        raise ValueError(f"psd_project takes 1 <= d <= {PSD_MAX_DIM}, got d = {a.shape[-1]}")
+    if not min_dim <= a.shape[-1] <= max_dim:
+        raise ValueError(f"{name} takes {min_dim} <= d <= {max_dim}, got d = {a.shape[-1]}")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
     if a.device.type == "cuda":
@@ -564,7 +580,7 @@ def _check_psd(a):
         if a.dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"a must be complex64 or complex128, got {a.dtype}")
     else:
-        raise ValueError(f"psd_project runs on cpu or cuda tensors, got {a.device}")
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {a.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -609,7 +625,7 @@ def psd_project(a):
     to `psd_project.launches`; on the CPU (complex64 or complex128) it runs
     `psd_project_reference`.
     """
-    _check_psd(a)
+    _check_batch(a, "psd_project", 1, PSD_MAX_DIM)
     if a.device.type == "cpu":
         return psd_project_reference(a)
     if a.shape[0] == 0:
@@ -621,3 +637,109 @@ def psd_project(a):
 
 
 psd_project.launches = 0
+
+
+# -- eigenvalue clip of states --------------------------------------------------
+
+CLIP_MAX_DIM = 256  # the largest state the clip kernel's cluster holds in shared memory
+CLIP_FLOOR = 1e-15  # eigenvalue floor: state_core.make_feasible_bloch's
+
+
+def _clip_refined(a0, v):
+    """The clip of the Hermitian a0 (B, d, d) from its approximate
+    eigenvectors v, to first order in their errors, as the kernel computes
+    it. With E = V^H V - I and B = V^H A0 V (sums in float64), the
+    orthonormal V (I - E / 2) has eigenvalues lambda_j = B_jj / (1 + E_jj)
+    and residue R = B - (E Lambda + Lambda E) / 2, and the clip is
+    U U^H with U = V (sqrt(W) + K - E sqrt(W) / 2), K_jt = G_jt R_jt /
+    (sqrt(w_j) + sqrt(w_t)), G the divided differences (w_j - w_t) /
+    (lambda_j - lambda_t) of w = max(lambda, 1e-15) / sum (1 / sum between
+    two positives, 0 between two clipped), which stay bounded between close
+    eigenvalues."""
+    wide = torch.complex128
+    vw = v.to(wide)
+    e = (vw.conj().transpose(-1, -2) @ vw).to(v.dtype)
+    e = e - torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+    b = (vw.conj().transpose(-1, -2) @ (a0.to(wide) @ vw)).to(v.dtype)
+    lam = b.diagonal(dim1=-2, dim2=-1).real / (1 + e.diagonal(dim1=-2, dim2=-1).real)
+    lp = lam.clamp(min=CLIP_FLOOR)
+    total = lp.sum(-1, keepdim=True)
+    sqrt_w = (lp / total).sqrt()
+    lj, lt = lam[..., :, None], lam[..., None, :]
+    pj, pt = lj > CLIP_FLOOR, lt > CLIP_FLOOR
+    mixed = (lp[..., :, None] - lp[..., None, :]) / torch.where(pj == pt, torch.ones_like(lj), lj - lt)
+    g = torch.where(pj & pt, torch.ones_like(mixed), torch.where(pj | pt, mixed, torch.zeros_like(mixed)))
+    g = g / total[..., None]
+    resid = b - 0.5 * e * (lj + lt).to(v.dtype)
+    k = (g / (sqrt_w[..., :, None] + sqrt_w[..., None, :])).to(v.dtype) * resid
+    k = k - torch.diag_embed(k.diagonal(dim1=-2, dim2=-1))
+    u = v * sqrt_w[..., None, :].to(v.dtype) + v @ (k - 0.5 * e * sqrt_w[..., None, :].to(v.dtype))
+    return u @ u.conj().transpose(-1, -2)
+
+
+def psd_clip_reference(a):
+    """Plain PyTorch eigenvalue clip, the same math as the kernel: the
+    cyclic Jacobi sweeps of `_psd_jacobi`, then `_clip_refined` (the
+    eigenvalues floored at 1e-15 and divided by their sum, V diag(w) V^H,
+    refined to first order against the input). a (B, d, d) complex64 or
+    complex128; its lower triangle is read."""
+    _, evecs, _ = _psd_jacobi(a)
+    return _clip_refined(_hermitian_input(a), evecs)
+
+
+@functools.lru_cache(maxsize=None)
+def _clip_library():
+    """Build and load csrc/psd_clip.cu; declare its C signatures."""
+    from . import _build
+
+    lib = _build.load("psd_clip")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.psd_clip_c64.argtypes = [p, p, p, p, i, i, p]
+    lib.psd_clip_c64.restype = i
+    lib.psd_clip_error_string.argtypes = [i]
+    lib.psd_clip_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _clip_launch(a, sweeps=None):
+    """Launch csrc/psd_clip.cu on the current stream of a's device and
+    return the output; `sweeps`, an int32 (B,) tensor on that device, gets
+    the sweeps each matrix ran."""
+    lib = _clip_library()
+    out = torch.empty_like(a)
+    work = torch.empty((a.shape[0], 3) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.psd_clip_c64(
+            a.data_ptr(), out.data_ptr(), work.data_ptr(),
+            None if sweeps is None else sweeps.data_ptr(),
+            a.shape[0], a.shape[-1], torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"psd_clip kernel launch failed: {lib.psd_clip_error_string(err).decode()}")
+    return out
+
+
+def psd_clip(a):
+    """Eigenvalue clip of a batch of states: their eigendecomposition, the
+    eigenvalues floored at 1e-15 and divided by their sum, and
+    V diag(w) V^H, one output per input.
+
+    a (B, d, d), contiguous, 64 < d <= 256; its lower triangle is read, as
+    `torch.linalg.eigh` reads it. On CUDA (complex64 only) it launches the
+    cluster Jacobi kernel on the current stream without synchronizing and
+    adds one to `psd_clip.launches` and to the open span's `launches`; on
+    the CPU (complex64 or complex128) it runs `psd_clip_reference`.
+    """
+    _check_batch(a, "psd_clip", PSD_MAX_DIM + 1, CLIP_MAX_DIM)
+    if a.device.type == "cpu":
+        return psd_clip_reference(a)
+    if a.shape[0] == 0:
+        return torch.empty_like(a)
+    out = _clip_launch(a)
+    _count_launch(psd_clip)
+    profiling.count("launches")
+    return out
+
+
+psd_clip.launches = 0

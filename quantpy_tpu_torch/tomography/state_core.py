@@ -77,10 +77,29 @@ def simulate_experiment(generator, povm_matrix, bloch, n_measurements):
         return sample_multinomial(generator, n, probs)
 
 
+def _clips_in_the_kernel(rho) -> bool:
+    """Whether the clip of the states `rho` (..., d, d) runs in
+    `kernels.psd_clip`: complex64 on the card at 64 < d <= 256 (7 and 8
+    qubits), where `torch.linalg.eigh` runs cuSOLVER one matrix at a time."""
+    return (rho.is_cuda and rho.dtype == torch.complex64
+            and kernels.PSD_MAX_DIM < rho.shape[-1] <= kernels.CLIP_MAX_DIM)
+
+
 def make_feasible_bloch(bloch, n_qubits: int):
     """Project onto physical states: clip the eigenvalues at 1e-15 and
-    renormalize the trace. Batched; real in, real out."""
+    renormalize the trace. Batched; real in, real out.
+
+    A complex64 batch on the card of 65 to 256 dimensions goes to
+    `kernels.psd_clip`, which does all of it in one launch and reads nothing
+    back, counted as `clip_kernel` (matrices) on the open span; everything
+    else (d <= 64, d > 256, complex128, the CPU) to `torch.linalg.eigh`,
+    whose error check on the card is one `host_sync`."""
     rho = bloch_to_matrix(bloch, n_qubits)
+    if _clips_in_the_kernel(rho):
+        d = rho.shape[-1]
+        profiling.count("clip_kernel", math.prod(rho.shape[:-2]))
+        rho = kernels.psd_clip(rho.reshape(-1, d, d).contiguous()).reshape(rho.shape)
+        return matrix_to_bloch(rho)
     evals, evecs = torch.linalg.eigh(rho)
     if rho.is_cuda:  # the error check reads the card's info back
         profiling.count("host_sync")

@@ -41,8 +41,12 @@ The program's spans, outermost first:
 Counters: `host_sync` (each point where the host waits for the card: a
 read of a tensor's value, an upload from host memory, the error check of
 a `torch.linalg` call on the card), `launches` (kernel launches, on
-`qt.rhor` and `qt.psd`), `eigh` (PSD projections by `torch.linalg.eigh`,
-on `qt.psd`; matrices clipped, on `qt.kron.lin.clip`), `iters` (Dykstra
+`qt.rhor` and `qt.psd`, and on the eigenvalue clip's span where
+`make_feasible_bloch` launches `kernels.psd_clip`), `eigh` (PSD
+projections by `torch.linalg.eigh`, on `qt.psd`; matrices clipped, on
+`qt.kron.lin.clip`), `clip_kernel` (the matrices of those that
+`make_feasible_bloch` sent to `kernels.psd_clip`; on `qt.kron.lin.clip`
+always, 0 where none went), `iters` (Dykstra
 steps run, on `qt.dykstra`; RrhoR steps run, on `qt.kron.rhor`),
 `resamples` (on `qt.kron.bootstrap`, and on `qt.kron.rhor` the states of
 its batch) and `chunks` (on `qt.kron.bootstrap`).

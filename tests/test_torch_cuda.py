@@ -1,5 +1,6 @@
-"""The RrhoR kernels and the PSD projection kernel on the card against
-their plain versions, and the paths without a kernel (Cholesky MLE, kron chains, process tomography, the
+"""The RrhoR kernels, the PSD projection kernel and the eigenvalue clip kernel
+on the card against their plain versions, and the paths without a kernel
+(Cholesky MLE, kron chains, process tomography, the
 analytic intervals' moments, linear programs and coverage harness, the MCMC
 chains' targets, drifts and steps) on the card against the CPU; the console
 entry points and the utilities on the card.
@@ -762,3 +763,122 @@ def test_psd_kernel_raises_instead_of_falling_back(cuda, bad):
     }[bad]
     with pytest.raises((TypeError, ValueError)):
         kernels.psd_project(a)
+
+
+# -- the eigenvalue clip kernel (csrc/psd_clip.cu) --------------------------------
+
+
+def _eigh_clip(a):
+    """make_feasible_bloch's eigh clip: eigenvalues floored at 1e-15 and
+    divided by their sum, recomposed."""
+    evals, evecs = torch.linalg.eigh(a)
+    evals = evals.clamp(min=1e-15)
+    evals = evals / evals.sum(-1, keepdim=True)
+    return (evecs * evals[..., None, :].to(evecs.dtype)) @ evecs.conj().transpose(-1, -2)
+
+
+def _clip_states(device, d, batch, seed):
+    """(batch, d, d) complex128 Hermitian inputs of trace 1 on the card,
+    half their eigenvalues negative: for d = 128 and 256, linear-inversion
+    estimates of the 7- and 8-qubit W state from 100 shots a setting (the
+    first up to 4), the rest random."""
+    import numpy as np
+
+    from . import reference_kron_state as ref
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, d, d)) + 1j * rng.normal(size=(batch, d, d))
+    a = (x + x.conj().transpose(0, 2, 1)) / (4 * d) + np.eye(d) / d
+    if d in (128, 256):
+        n, w = d.bit_length() - 1, min(batch, 4)
+        probs = ref.probabilities(torch.as_tensor(ref.bloch_of_ket(ref.w_ket(n))), n).numpy()
+        counts = torch.as_tensor(np.stack([ref.draw_counts(rng, probs, 100) for _ in range(w)]))
+        a[:w] = ref.bloch_to_matrix(ref.lin(ref.frequencies(counts), n, physical=False), n).numpy()
+    return torch.as_tensor(a, dtype=torch.complex128).to(device)
+
+
+@pytest.mark.parametrize("batch", [1, 9, 19, 256])
+@pytest.mark.parametrize("d", [65, 128, 256])
+def test_clip_kernel_matches_plain_and_eigh(cuda, d, batch):
+    a = _clip_states(cuda, d, batch, seed=d + batch).to(torch.complex64)
+    before = kernels.psd_clip.launches
+    sweeps = torch.zeros(batch, dtype=torch.int32, device=cuda)
+    out = kernels._clip_launch(a, sweeps)
+    torch.cuda.synchronize()
+    assert int(sweeps.max()) < kernels.PSD_MAX_SWEEPS
+    scale = a.abs().amax((-2, -1), keepdim=True)
+    for ref in (kernels.psd_clip_reference(a), _eigh_clip(a)):
+        assert float(((out - ref).abs() / scale).max()) <= TOL[torch.float32]
+    assert torch.equal(kernels.psd_clip(a), out)
+    assert kernels.psd_clip.launches == before + 1
+
+
+@pytest.mark.parametrize("batch", [1, 19])
+@pytest.mark.parametrize("d", [65, 128, 256])
+def test_clip_kernel_as_accurate_as_the_float32_eigh_clip(cuda, d, batch, record_property):
+    a64 = _clip_states(cuda, d, batch, seed=7 * d + batch)
+    a = a64.to(torch.complex64)
+    exact = _eigh_clip(a64)
+    out = kernels.psd_clip(a)
+    kernel_err = float((out.to(torch.complex128) - exact).abs().max())
+    eigh_err = float((_eigh_clip(a).to(torch.complex128) - exact).abs().max())
+    record_property("max_err_kernel", kernel_err)
+    record_property("max_err_eigh_f32", eigh_err)
+    print(f"d={d} B={batch}: max|clip - float64 clip| kernel {kernel_err:.3e}, "
+          f"float32 eigh {eigh_err:.3e}")
+    assert kernel_err <= 2 * eigh_err
+    trace = out.diagonal(dim1=-2, dim2=-1).sum(-1)
+    assert float((trace.real - 1).abs().max()) <= 1e-5
+    assert float(trace.imag.abs().max()) <= 1e-5
+    assert float(torch.linalg.eigvalsh(out.to(torch.complex128)).min()) >= -1e-6
+
+
+def test_kron_lin_at_eight_qubits_clips_in_the_kernel(cuda):
+    import numpy as np
+
+    from quantpy_tpu_torch.tomography import kron_core
+    from quantpy_tpu_torch.utils import profiling
+
+    from . import reference_kron_state as ref
+
+    n, batch = 8, 3
+    probs = ref.probabilities(torch.as_tensor(ref.bloch_of_ket(ref.w_ket(n))), n).numpy()
+    rng = np.random.default_rng(8)
+    counts = np.stack([ref.draw_counts(rng, probs, 100) for _ in range(batch)])
+    povm1 = torch.as_tensor(ref.PROJ_SET_1)
+    before = kernels.psd_clip.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        est = kron_core.kron_estimate_lin(torch.as_tensor(counts, dtype=torch.float32, device=cuda),
+                                          povm1.to(cuda, torch.float32), n)
+    torch.cuda.synchronize()
+    clips = [s for s in profiling.recorded() if s.name == "qt.kron.lin.clip"]
+    assert len(clips) == 1
+    assert clips[0].counts.get("clip_kernel") == clips[0].counts.get("eigh") == batch
+    assert clips[0].counts.get("launches") == 1 and "host_sync" not in clips[0].counts
+    assert kernels.psd_clip.launches == before + 1
+    on_cpu = kron_core.kron_estimate_lin(torch.as_tensor(counts), povm1, n)
+    assert float((est.double().cpu() - on_cpu).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n, dtype", [(4, torch.float32), (8, torch.float64)])
+def test_clip_kernel_not_launched_for_16_dimensions_or_float64(cuda, n, dtype):
+    bloch = torch.zeros(2, 4**n, dtype=dtype, device=cuda)
+    bloch[:, 0] = 2.0**-n
+    bloch[:, 1] = 0.5 * 2.0**-n
+    before = kernels.psd_clip.launches
+    out = state_core.make_feasible_bloch(bloch, n)
+    torch.cuda.synchronize()
+    assert kernels.psd_clip.launches == before
+    assert out.dtype == dtype and out.device.type == "cuda"
+
+
+@pytest.mark.parametrize("bad", ["complex128", "d64", "d257", "strided"])
+def test_clip_kernel_raises_instead_of_falling_back(cuda, bad):
+    a = {
+        "complex128": torch.zeros(2, 72, 72, dtype=torch.complex128, device=cuda),
+        "d64": torch.zeros(2, 64, 64, dtype=torch.complex64, device=cuda),
+        "d257": torch.zeros(2, 257, 257, dtype=torch.complex64, device=cuda),
+        "strided": torch.zeros(2, 72, 144, dtype=torch.complex64, device=cuda)[..., :72],
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.psd_clip(a)

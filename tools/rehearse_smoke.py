@@ -2,6 +2,7 @@
 """Rehearse chip_smoke.py's phases 6 to 14 on the CPU, without a card.
 
     python tools/rehearse_smoke.py [--phases 67891011121314] [--scaling 6]
+    python tools/rehearse_smoke.py --phases c   # phase 2's psd_clip rows
 
 The port runs on the CPU, CUDA events and synchronization are replaced by
 host clocks, the kron scaling rows shrink to the qubit counts given, the
@@ -24,7 +25,12 @@ FP32 peak a stand-in of 1 TFLOP/s and its rate not held to phase 4's),
 chain-sampled flagship to phase 3's resample count at 2 qubits, its kron
 draws to 4 qubits (the one-block equality to 3), its channel moments to 2
 qubits at state chunks of 3 and 16 with 16 probes, its host pgdb to 1
-qubit with 5 steps and its df32 row to 10^4 numbers. What it prints are
+qubit with 5 steps and its df32 row to 10^4 numbers; phase 7's W-state
+clip row to 3 qubits and 6 resamples in chunks of 2, its float32 states
+clipped by a counting stand-in of the clip kernel; phase 2's psd_clip
+rows (`--phases c`) to 2 and 3 matrices of 72 x 72 and 128 x 128, the
+kernel's place taken by its plain version (which the CPU runs for it), so
+that its comparisons read 0 there. What it prints are
 CPU readings: they check control flow, shapes and numerics, never the
 card's times. It also prints how many L-BFGS evaluations (value and
 gradient of the whole batch) phase 6 ran.
@@ -59,10 +65,39 @@ class _HostEvent:
         return (end.t - self.t) * 1e3
 
 
+def _rehearsed_clip_row(row, n_qubits: int):
+    """Phase 7's W-state clip row on the CPU: kron_core's chunks cut to 2
+    resamples, and the float32 states routed to a counting stand-in of
+    `kernels.psd_clip` (its plain version, whatever d), as the card routes
+    them at 65-256 dimensions."""
+    from quantpy_tpu_torch.ops import kernels
+    from quantpy_tpu_torch.tomography import kron_core, state_core
+    from quantpy_tpu_torch.utils import profiling
+
+    def rehearsed(card, povm1, gen):
+        saved = (kron_core.CHUNK_COUNT_ENTRIES, state_core._clips_in_the_kernel, kernels.psd_clip)
+
+        def clip(a):
+            clip.launches += 1
+            profiling.count("launches")
+            return kernels.psd_clip_reference(a)
+
+        clip.launches = 0
+        kron_core.CHUNK_COUNT_ENTRIES = 2 * (povm1.shape[0] * povm1.shape[1]) ** n_qubits
+        state_core._clips_in_the_kernel = lambda rho: rho.dtype == torch.complex64
+        kernels.psd_clip = clip
+        try:
+            return row(card, povm1, gen)
+        finally:
+            kron_core.CHUNK_COUNT_ENTRIES, state_core._clips_in_the_kernel, kernels.psd_clip = saved
+
+    return rehearsed
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="67891011121314",
-                        help="which of phases 6-14 to run")
+                        help="which of phases 6-14 to run; c: phase 2's psd_clip rows")
     parser.add_argument("--scaling", default="6", help="comma-separated kron scaling rows")
     args = parser.parse_args()
 
@@ -144,6 +179,19 @@ def main() -> int:
     lbfgs._value_and_grad = counted
     card = "the CPU (rehearsal, not a device reading)"
     phases = args.phases
+    if "c" in phases:
+        from quantpy_tpu_torch.ops import kernels
+
+        def clip_launch(a, sweeps=None):
+            if sweeps is not None:
+                sweeps.fill_(kernels._psd_jacobi(a)[2])
+            return kernels.psd_clip_reference(a)
+
+        kernels._clip_launch = clip_launch
+        chip_smoke.CLIP_SHAPES = ((2, 72), (3, 128))
+        t0 = time.perf_counter()
+        chip_smoke.phase2_clip_kernel()
+        print(f"phase 2 (psd_clip): {time.perf_counter() - t0:.1f} s on the CPU")
     for two_digits, letter in (("14", "V"), ("13", "W"), ("12", "Z"), ("11", "Y"), ("10", "X")):
         phases = phases.replace(two_digits, letter)
     if "6" in phases:
@@ -152,6 +200,8 @@ def main() -> int:
         print(f"phase 6: {time.perf_counter() - t0:.1f} s on the CPU; "
               f"L-BFGS evaluations {evaluations}")
     if "7" in phases:
+        chip_smoke.KRON_CLIP_ROW = (3, 6)
+        chip_smoke._kron_clip_row = _rehearsed_clip_row(chip_smoke._kron_clip_row, 3)
         t0 = time.perf_counter()
         chip_smoke.phase7_kron(card)
         print(f"phase 7: {time.perf_counter() - t0:.1f} s on the CPU")

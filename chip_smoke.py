@@ -6,13 +6,18 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, in order; any failed check or exception ends the run with a
-non-zero exit code, and nothing falls back to the CPU:
+non-zero exit code, and nothing falls back to the CPU. The script checks;
+the cells of BENCHMARK.json time (`python3 -m benchmark.run`). The one
+timed phase is 2, whose kernel-against-plain times fill PERF.md's kernel
+table; the other phases print values, errors, launch counts and peak
+memory, never a time or a rate. There is no phase 4: the cells time the
+bootstrap.
 
 0. Device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi) and the torch and CUDA versions.
-1. Build both RrhoR kernels and the PSD projection kernel from
-   quantpy_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per source,
-   started together.
+1. Build the four kernels from quantpy_tpu_torch/csrc/ with nvcc
+   (sm_90a), one nvcc per source, started together; print ptxas's
+   register and spill lines.
 2. Each kernel (rhor_mle, the lane kernel; rhor_mle_flat, the flat-matrix
    kernel) against its plain PyTorch version on identical CUDA inputs
    (n = 1, 2, 3, 4, 5, 6 in float32, n = 2, 4 in float64, ragged batches,
@@ -44,29 +49,23 @@ non-zero exit code, and nothing falls back to the CPU:
    (RrhoR-60: one launch of the lane kernel), with the kernels' launch
    counts and the device of every tensor operation checked; then kernel
    and plain versions held against each other on one fixed draw of counts.
-4. The bootstrap call's steady-state rate (best of 3) and its per-stage
-   times, beside the card's name and power limit.
 5. The flat kernel on the main path: the flagship bootstrap_distances call
    with kernels.rhor_mle replaced by kernels.rhor_mle_flat (as bench.py
    swaps the JAX kernels), launch counts and devices checked; flat and
-   lane kernels held against each other on one fixed draw of counts; the
-   rate of both variants, best of 3, in turns.
+   lane kernels held against each other on one fixed draw of counts.
 6. Cholesky MLE ('mle', batched L-BFGS) on the card: GHZ-4 point estimates
    ('mle-constr' must equal 'mle'), a 1,024-resample bootstrap interval
    audited for devices and for kernel launches (none), the per-resample
-   likelihood of 'mle' beside RrhoR-60 on one fixed draw, the float64
-   agreement of 'mle' and 'mle-rhor' at 2 qubits, and the bootstrap's rate
-   and idle share (torch.profiler's device time against the call's time).
+   likelihood of 'mle' beside RrhoR-60 on one fixed draw, and the float64
+   agreement of 'mle' and 'mle-rhor' at 2 qubits.
 7. The kron-factored path on the card: its chains, lin and RrhoR against
    the dense path at 4 qubits; StateTomograph(GHZ(6)) in kron mode; the
-   6-qubit 256-resample MLE bootstrap of bench.py, audited, with its rate
-   and idle share; bench.py's
-   scaling rows (6, 8, 10, 11 qubits: simulate, lin and MLE-60 times, hs to
-   the truth, peak memory); bench.py's 10-qubit 16-resample bootstrap rate;
+   6-qubit 256-resample MLE bootstrap of bench.py, audited; bench.py's
+   scaling rows (6, 8, 10, 11 qubits: simulate, lin and MLE-60, hs to the
+   truth, peak memory); bench.py's 10-qubit 16-resample bootstrap;
    w8-rhor256's 8-qubit W-state bootstrap cut to 40 resamples ('mle-rhor'
    from lin starts, three chunks), its psd_clip launches counted from 0
    and held to one per chunk (the kernels line's psd_clip launches).
-
 8. Process tomography on the card (no kernel of its own): at 2 qubits in
    float64 all four estimators of ProcessTomograph(depolarizing(0.1, 2))
    and the Newton-Schulz CP engine against eigh; lifp, the projection with
@@ -75,28 +74,27 @@ non-zero exit code, and nothing falls back to the CPU:
    with 'mle-rhor' in float32, none with 'lin'); then the 4-qubit process
    bootstrap of bench.py (depolarizing(0.1, 4), 256 proj4 inputs, proj-set,
    2,000 shots per POVM, lifp + CPTP, 256 resamples, float32): audited for
-   devices, float64 operations and kernel launches (none), each resampled
-   Choi matrix checked for TP and CP, its rate, stage times, peak memory,
-   idle share and the projection's TFLOP/s; and a 3-qubit 64-resample
-   bootstrap on the 'eigh' engine: time, peak memory, and its psd_project
-   launches, counted from 0 and held to one per Dykstra step (the kernels
-   line's psd_project launches).
+   devices, float64 operations and kernel launches (none), two seeds'
+   quantiles held together, each resampled Choi matrix checked for TP and
+   CP, peak memory; and a 3-qubit 64-resample bootstrap on the 'eigh'
+   engine: peak memory and its psd_project launches, counted from 0 and
+   held to one per Dykstra step (the kernels line's psd_project launches).
 9. The analytic confidence intervals on the card (no kernel of their own):
    (a) every interval of the slice (moment, Sugiyama, moment-fidelity,
    polytope on all three LP paths, Holder), count_delta and the coverage
    hits on 2-qubit tomographs in float64, the card against the CPU on the
    same counts (equal lp_iterations); (b) full-width rows in float32,
    each audited for devices, float64 operations and kernel launches (none),
-   with times, radii or bounds, lp_iterations, peak memory and the
-   polytopes' idle share and GEMM share; each polytope's two LP solves
-   with their last residual readings, the margins that report the 1.0
-   marker of a failed solve, and its other margins held to bracket the
-   true point wherever it is feasible: GHZ-4 dense (1,000-margin
-   polytope), the f32 polytope against a float64 rerun, GHZ-6 in kron mode
-   (200 margins), depolarizing(0.1, 4) with 256 inputs (exact per-state
-   moments, Holder's 256 children, the two-factor polytope at 25 margins)
-   and its Hutchinson moments; (c) the coverage harness at 10^4 trials x 18
-   levels (GHZ-4; 3-qubit QPT with sic inputs).
+   with radii or bounds, lp_iterations and peak memory; each polytope's
+   two LP solves with their last residual readings, the margins that
+   report the 1.0 marker of a failed solve, and its other margins held to
+   bracket the true point wherever it is feasible: GHZ-4 dense
+   (1,000-margin polytope), the f32 polytope against a float64 rerun,
+   GHZ-6 in kron mode (200 margins), depolarizing(0.1, 4) with 256 inputs
+   (exact per-state moments, Holder's 256 children, the two-factor
+   polytope at 25 margins) and its Hutchinson moments; (c) the coverage
+   harness at 10^4 trials x 18 levels (GHZ-4; 3-qubit QPT with sic
+   inputs).
 10. The MCMC intervals on the card (no kernel of their own): (a) at 2
    qubits in float64 the chains' targets (state, process 'bloch', anchored
    kraus, projected) and their autograd drifts, the kraus decodes and 50 MH
@@ -110,8 +108,7 @@ non-zero exit code, and nothing falls back to the CPU:
    phase 8's 4-qubit experiment: a short anchored kraus-MALA chain and 10
    projected-target MALA steps; (f) HolderInterval('mhmc') at 2 qubits;
    (g) the calibration harness with interval='mhmc'. Each row prints its
-   time, steps per second, acceptance, R-hat, ESS, radii and peak memory,
-   and the idle share of a span of its chain.
+   acceptance, R-hat, ESS, radii and peak memory.
 11. The user entry points on the card (rhor_mle through the f32 bootstrap
    batches, never rhor_mle_flat): (a) the state CLI
    (`quantpy_tpu_torch.cli.state_interval.main`) on phase 3's GHZ-4
@@ -121,27 +118,25 @@ non-zero exit code, and nothing falls back to the CPU:
    quantpy_tpu_torch.cli.state_interval --no-ci` in a process of its own;
    (b) a GHZ-6 kron-mode record (moment, 256-resample bootstrap); (c) the
    process CLI on phase 8's 4-qubit experiment (lifp; moment, 256-resample
-   bootstrap); each invocation with its host time (parse, validation,
-   tomograph), a counted run and an audited rerun (the bootstraps
-   profiled for the device's busy time); (d) every deterministic output of
+   bootstrap); each invocation a counted run in a StageTimer stage, its
+   output checked, and an audited rerun; (d) every deterministic output of
    both CLIs on examples/data's records, the card against the CPU in
    float64 (1e-10 of scale, equal lp_iterations) and float32 against
    float64 (5e-3); (e) resumable_bootstrap (16,384 resamples in chunks of
    4,096, one launch each) interrupted after 2 chunks and resumed, equal to
-   the uninterrupted run, the StageTimer report of (a)-(c) and a
+   the uninterrupted run, the StageTimer's stages of (a)-(c) and a
    utils.trace() of one bootstrap call that names the kernel; (f) the
-   examples at reduced sizes, figures off, each timed, then rerun under
+   examples at reduced sizes, figures off, each counted, then rerun under
    the device audit (its MCMC chains and 'pgdb' loops shortened). Every
    counted run resets the kernels' counts before it and reads them after.
 12. The mesh layer (`quantpy_tpu_torch.parallel`) on MESH_SHARDS logical
    shards of the one card, float32 unless stated: (a) phase 3's GHZ-4
    bootstrap, 16,384 resamples with RrhoR-60, over 4 shards (one rhor_mle
    launch per shard, counted) and over 1, equal to the shards'
-   single-device calls on the shards' generators, the rates beside phase
-   4's single call, the 4-shard call's idle share; (b) the 6-qubit
+   single-device calls on the shards' generators; (b) the 6-qubit
    operator-sharded functions against kron_core in float64, then GHZ-12
    with proj-set (8.7 GB of counts): the operator-sharded simulate, lin
-   and MLE-60 with times, peak memory and hs to the truth, then the
+   and MLE-60 with peak memory and hs to the truth, then the
    single-device kron_core MLE-60 on the gathered counts, its peak and its
    gap to the sharded estimate (11 qubits where 12 do not fit, said so);
    (c) MHMCStateInterval on phase 3's experiment and the anchored kraus
@@ -154,38 +149,38 @@ non-zero exit code, and nothing falls back to the CPU:
 13. The port's benchmark and entry points: (a)
    `quantpy_tpu_torch.bench.main` in-process at full width, its stderr
    shown and its JSON line printed and checked: every extras key,
-   `skipped` empty, `value` within BENCH_RATE_REL of phase 4's rate,
-   `mfu_f32_pct` equal to 1.353 TFLOP over the best call and the card's
-   FP32 peak, the 6-11 qubit MLE rows within TRUTH_HS_LIMIT of the truth,
-   and the rhor_mle and rhor_mle_flat launches equal to those its code
-   implies; (b) `quantpy_tpu_torch.entry.entry()`'s flagship round (256
-   resamples, RrhoR-100: one rhor_mle launch); (c)
-   `entry.dryrun_multichip` over MESH_SHARDS logical shards of the card
-   under the device audit, with its rhor_mle launches. Each counted run
-   resets the kernels' counts before it and reads them after.
+   `skipped` empty, `mfu_f32_pct` equal to 1.353 TFLOP over the best call
+   and the card's FP32 peak, the 6-11 qubit MLE rows within
+   TRUTH_HS_LIMIT of the truth, and the rhor_mle and rhor_mle_flat
+   launches equal to those its code implies; (b)
+   `quantpy_tpu_torch.entry.entry()`'s flagship round (256 resamples,
+   RrhoR-100: one rhor_mle launch); (c) `entry.dryrun_multichip` over
+   MESH_SHARDS logical shards of the card under the device audit, with its
+   rhor_mle launches. Each counted run resets the kernels' counts before
+   it and reads them after.
 14. The rest of the surface, float32 unless stated: (a) phase 3's 16,384 x
    81 x 16 flagship counts drawn by the chain sampler
    (`sample_multinomial(..., method="chain")`) and by the binary split from
-   one set of probabilities, each draw timed (best of 3) with exact row
-   totals, each estimated by estimate_lin and RrhoR-60 (one rhor_mle launch
-   each, counted, under the device audit) and held to phase 3's median
-   band, the two medians within CHAIN_MEDIAN_REL, and B1 held to its plain
-   version on the chain's counts (HS_TOL_F32); (b) GHZ-12, proj-set, 10^4
-   shots: `kron_simulate` and `kron_simulate_chunked` (27 blocks), each
-   timed with its peak memory, exact row totals and per-outcome sums within
-   5 standard errors of each other and of n p, then at 8 qubits the
-   one-block chunked draw equal to `kron_simulate` bit for bit on a
-   reseeded generator; (c) phase 9's 4-qubit channel design through
-   `channel_l2_moments_kron` at state_chunk 64 and 256 on the same 128
-   probes, float64, equal to 1e-10 relative, with each one's time and peak;
-   (d) `estimate_pgdb_factored_host` at 2 qubits in float64 (15 steps from
-   a lifp warm start) against `estimate_pgdb_factored` and against the CPU
-   (1e-10); (e) `ops/df32` and `ops/cplx` on 10^6 float32 numbers: two_sum
-   and two_prod exact against float64, df_div_ff within 2^-40, sum2f within
-   one float32 ulp of the float64 sum, the pair conversions exact. Phases
-   3, 5, 8, 11, 12, 13 and 14's counted launches make the kernels line's
-   counts (psd_project's: phase 8's 'eigh' bootstrap alone; psd_clip's:
-   phase 7's 8-qubit W-state bootstrap alone).
+   one set of probabilities, each with exact row totals, each estimated by
+   estimate_lin and RrhoR-60 (one rhor_mle launch each, counted, under the
+   device audit) and held to phase 3's median band, the two medians within
+   CHAIN_MEDIAN_REL, and B1 held to its plain version on the chain's
+   counts (HS_TOL_F32); (b) GHZ-12, proj-set, 10^4 shots: `kron_simulate`
+   and `kron_simulate_chunked` (27 blocks), each with its peak memory,
+   exact row totals and per-outcome sums within 5 standard errors of each
+   other and of n p, then at 8 qubits the one-block chunked draw equal to
+   `kron_simulate` bit for bit on a reseeded generator; (c) phase 9's
+   4-qubit channel design through `channel_l2_moments_kron` at state_chunk
+   64 and 256 on the same 128 probes, float64, equal to 1e-10 relative,
+   with each one's peak; (d) `estimate_pgdb_factored_host` at 2 qubits in
+   float64 (15 steps from a lifp warm start) against
+   `estimate_pgdb_factored` and against the CPU (1e-10); (e) `ops/df32`
+   and `ops/cplx` on 10^6 float32 numbers: two_sum and two_prod exact
+   against float64, df_div_ff within 2^-40, sum2f within one float32 ulp of
+   the float64 sum, the pair conversions exact. Phases 3, 5, 8, 11, 12, 13
+   and 14's counted launches make the kernels line's counts
+   (psd_project's: phase 8's 'eigh' bootstrap alone; psd_clip's: phase 7's
+   8-qubit W-state bootstrap alone).
 
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -198,7 +193,6 @@ import json
 import math
 import subprocess
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -281,11 +275,8 @@ ANALYTIC_LEVELS = (0.5, 0.9, 0.99)  # where each row's radii and bounds are prin
 ANALYTIC_F64_POINTS = 40
 F32_F64_ATOL = 5e-3
 # The rows' DeviceAudit passes cap every polytope LP at one 500-iteration
-# chunk, and the idle shares of the three polytopes are read on runs capped
-# at IDLE_LP_ITERS: every PDHG iteration runs the same operations, and the
-# profiler stays at ~20k device events per run.
+# chunk: every PDHG iteration runs the same operations.
 AUDIT_LP_ITERS = 500
-IDLE_LP_ITERS = 1000
 # A polytope's two LP solves (min, max) at full width are read as the
 # stopping rule last read them. A margin whose solve leaves a violation over
 # LP_FLAG_VIOL reports the bound 1.0 (interval._PolytopeBase._solve_with).
@@ -311,8 +302,7 @@ COVERAGE_QPT = (3, 10_000, 10_000)
 # 4-qubit kraus chain on phase 8's experiment (mode_seek, burn_steps,
 # n_points); the 4-qubit projected MALA steps; Holder's children (n_points,
 # burn_steps). Decoded kraus samples are TP to MCMC_TP_TOL and PSD to
-# MCMC_MIN_EIG. Idle shares are read on MCMC_IDLE_STEPS steps of a row's
-# chain.
+# MCMC_MIN_EIG.
 MCMC_CARD_TOL = 1e-10
 # The projected target's drift differentiates 100 Newton-Schulz Dykstra
 # steps of 19 sign iterations each; the sign iteration's Jacobian grows
@@ -331,7 +321,6 @@ MCMC_PROJECTED_STEPS = 5
 MCMC_HOLDER = (100, 100)
 MCMC_TP_TOL = 1e-5
 MCMC_MIN_EIG = -1e-6
-MCMC_IDLE_STEPS = 20
 # each row's audit pass runs these options (shorter chains, the same code)
 MCMC_AUDIT_STATE = dict(n_points=16, burn_steps=8, adapt_step=False)
 MCMC_AUDIT_BME = dict(n_samples=4, burn_steps=4, adapt_step=False)
@@ -376,7 +365,6 @@ BENCH_KEYS = (
     "kernel_lane_rec_s", "kernel_flat_rec_s", "process_boot_4q_rec_s",
     "skipped", "times_ms", "spread", "device",
 )
-BENCH_RATE_REL = 0.15  # the bench's value against phase 4's rate of the same call
 # mfu_f32_pct is rounded to 0.1 and the call times to 1 us
 BENCH_MFU_ROUNDING = 0.05 + 1e-3
 ENTRY_POINTS = 256  # resamples of entry()'s bootstrap round
@@ -410,38 +398,6 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def device_busy_ms(fn) -> float:
-    """The card's busy time in one call of fn(), in milliseconds: the sum of
-    the durations of the kernels and copies that torch.profiler records on
-    the device (0.0 if it records none)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-
-
-def idle_share(busy_ms, wall_ms):
-    """1 - busy / wall as printed: unclamped, so that a busy time above the
-    wall time (work counted twice) shows as a negative share, and named."""
-    if busy_ms <= 0:
-        return "not measured (the profiler recorded no device time)"
-    share = f"{1.0 - busy_ms / wall_ms:.3f}"
-    if busy_ms > wall_ms:
-        share += " (the profiler's busy time exceeds the call's wall time)"
-    return share
-
-
-def log_idle_share(what, fn, wall_ms):
-    """Print the device's busy time in one more call of fn() beside the
-    call's unprofiled wall time `wall_ms`, and the idle share."""
-    busy = device_busy_ms(fn)
-    log(f"    {what}: device busy {busy:.3f} ms of a {wall_ms:.3f} ms call; "
-        f"idle share {idle_share(busy, wall_ms)}")
-
-
 def phase0_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
@@ -467,17 +423,14 @@ def phase1_build():
         [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[-1]
     log(f"    {nvcc_version}")
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
     for name in KERNELS:
         kernels._library(name)
     kernels._psd_library()
     kernels._clip_library()
-    log(f"    build + load of all four: {time.perf_counter() - t0:.2f} s")
     for name in names:
-        seconds, output = _build.build_log.get(name, (0.0, ""))
-        log(f"    {name}: nvcc {seconds:.2f} s")
+        _, output = _build.build_log.get(name, (0.0, ""))
         for line in output.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas: {line.strip()}")
@@ -807,7 +760,6 @@ def phase3_main_path(card):
     audit = DeviceAudit()
     kernels.rhor_mle.launches = 0
     kernels.rhor_mle_flat.launches = 0
-    t0 = time.perf_counter()
     with audit:
         tmg = qtt.StateTomograph(qtt.GHZ(N_QUBITS), key=2026)  # the default device
         tmg.experiment(N_SHOTS, "proj-set")
@@ -820,7 +772,6 @@ def phase3_main_path(card):
         torch.cuda.synchronize()
     launches = kernels.rhor_mle.launches
     flat_launches = kernels.rhor_mle_flat.launches
-    wall = time.perf_counter() - t0
     infid = float(qtt.if_dst(est, qtt.GHZ(N_QUBITS)))
     sample = interval.distances
     median = float(np.median(sample))
@@ -832,7 +783,7 @@ def phase3_main_path(card):
         raise AssertionError(f"the default device is not {DEVICE}: {tmg.device}")
     log(f"    point estimate infidelity to GHZ-4: {infid:.3e}")
     log(f"    bootstrap hs distances at {levels}: {[float(x) for x in dists]}; "
-        f"median {median:.4e}; first run {wall:.2f} s with the audit on")
+        f"median {median:.4e}")
     log(f"    rhor_mle launches in the main path: {launches} (rhor_mle_flat: {flat_launches}); "
         f"aten ops audited: {audit.n_ops}")
     if sample.shape != (N_POINTS,) or not np.all(np.isfinite(sample)):
@@ -903,47 +854,6 @@ def phase3_main_path(card):
     return tmg, est, launches
 
 
-def phase4_rate(card, tmg, est):
-    from quantpy_tpu_torch.tomography import bootstrap_core, state_core
-
-    log("[4] bootstrap rate (informational)")
-    dev, dtype = tmg.device, tmg.dtype
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    bloch_est = est.bloch_tensor(dev, dtype)
-    povm = torch.as_tensor(tmg.povm_matrix, dtype=dtype, device=dev)
-    n_meas = torch.as_tensor(tmg.n_measurements, dtype=dtype, device=dev)
-
-    def call():
-        return bootstrap_core.bootstrap_distances(
-            gen, bloch_est, povm, n_meas, n_points=N_POINTS, method="mle-rhor",
-            max_iter=MLE_ITERS,
-        )
-
-    call()
-    ms = cuda_ms(call, 3)
-    log(f"    bootstrap_distances, {N_POINTS} resamples, RrhoR-{MLE_ITERS}: best of 3 "
-        f"{ms:.3f} ms = {N_POINTS / ms * 1e3:.1f} resamples/s on {card}")
-
-    blochs = bloch_est.expand(N_POINTS, -1)
-    n = N_QUBITS
-    counts = state_core.simulate_experiment(gen, povm, blochs, n_meas)
-    raw = state_core.estimate_lin(counts, povm, n_meas, physical=False)
-    init = state_core.make_feasible_bloch(raw, n)
-    est_b = state_core.estimate_mle_rhor(counts, povm, n_meas, init, max_iter=MLE_ITERS)
-    stages = {
-        "simulate": lambda: state_core.simulate_experiment(gen, povm, blochs, n_meas),
-        "lin_solve": lambda: state_core.estimate_lin(counts, povm, n_meas, physical=False),
-        "eigh_clip": lambda: state_core.make_feasible_bloch(raw, n),
-        "rhor_kernel": lambda: state_core.estimate_mle_rhor(
-            counts, povm, n_meas, init, max_iter=MLE_ITERS),
-        "hs_distance": lambda: bootstrap_core._distance_batch("hs", est_b, bloch_est, n),
-    }
-    times = {name: cuda_ms(fn, 3) for name, fn in stages.items()}
-    log("    stages (ms, best of 3): " + json.dumps({k: round(v, 3) for k, v in times.items()}))
-    return ms
-
-
 def _fixed_draw_hs(tmg, est, seed):
     """hs distances to `est` of one fixed draw of N_POINTS resamples,
     estimated by RrhoR-60 through kernels.rhor_mle (the lane kernel, or the
@@ -971,7 +881,7 @@ def _fixed_draw_hs(tmg, est, seed):
     return hs
 
 
-def phase5_flat_path(card, tmg, est):
+def phase5_flat_path(tmg, est):
     import numpy as np
 
     from quantpy_tpu_torch.bench import flat_kernel_on_main_path
@@ -1038,16 +948,6 @@ def phase5_flat_path(card, tmg, est):
         raise AssertionError(f"flat and lane hs distances disagree in float32: {err32}")
     if not err64 <= HS_TOL:
         raise AssertionError(f"flat and lane hs distances disagree in float64: {err64}")
-
-    # the rate of both variants, best of 3, in turns
-    lane_ms = flat_ms = math.inf
-    for _ in range(3):
-        lane_ms = min(lane_ms, cuda_ms(call, 1))
-        with flat_kernel_on_main_path():
-            flat_ms = min(flat_ms, cuda_ms(call, 1))
-    log(f"    bootstrap_distances, {N_POINTS} resamples, RrhoR-{MLE_ITERS}, best of 3 in turns "
-        f"on {card}: flat kernel {flat_ms:.3f} ms = {N_POINTS / flat_ms * 1e3:.1f} resamples/s, "
-        f"lane kernel {lane_ms:.3f} ms = {N_POINTS / lane_ms * 1e3:.1f} resamples/s")
     return flat_launches
 
 
@@ -1083,7 +983,7 @@ def _check_distances(sample, n_points, what):
     return median
 
 
-def phase6_cholesky_mle(card):
+def phase6_cholesky_mle():
     import numpy as np
 
     import quantpy_tpu_torch as qtt
@@ -1112,17 +1012,14 @@ def phase6_cholesky_mle(card):
             tmg, n_points=n_points, method="mle", max_iter=max_iter // 10, key=6, state=est
         )()
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
     interval = qtt.BootstrapStateInterval(
         tmg, n_points=n_points, method="mle", max_iter=max_iter, key=6, state=est
     )
     dists, _ = interval((0.5, 0.9, 0.99))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     median = _check_distances(interval.distances, n_points, "'mle' bootstrap")
     log(f"    BootstrapStateInterval('mle', {n_points} resamples, max_iter {max_iter}): hs at "
-        f"(0.5, 0.9, 0.99) {[float(x) for x in dists]}; median {median:.4e}; first run "
-        f"{wall:.2f} s (the audited pass: max_iter {max_iter // 10})")
+        f"(0.5, 0.9, 0.99) {[float(x) for x in dists]}; median {median:.4e} (the audited "
+        f"pass: max_iter {max_iter // 10})")
     _check_no_kernel_and_on_card(audit, "the 'mle' bootstrap")
 
     # 'mle' beside RrhoR-60 on one fixed draw
@@ -1165,18 +1062,6 @@ def phase6_cholesky_mle(card):
         f"{hs2:.3e} (limit 5e-4)")
     if not hs2 < 5e-4:
         raise AssertionError(f"'mle' and 'mle-rhor' disagree in float64: hs {hs2}")
-
-    bloch_est = est.bloch_tensor(dev, tmg.dtype)
-
-    def call():
-        return bootstrap_core.bootstrap_distances(
-            gen, bloch_est, povm, n_meas, n_points=n_points, method="mle", max_iter=max_iter
-        )
-
-    ms = cuda_ms(call, 2)
-    log(f"    bootstrap_distances('mle'), {n_points} resamples, max_iter {max_iter}: best of 2 "
-        f"{ms:.3f} ms = {n_points / ms * 1e3:.1f} resamples/s on {card}")
-    log_idle_share("the 'mle' bootstrap call", call, ms)
 
 
 def _kron_dense_checks():
@@ -1223,30 +1108,18 @@ def _kron_dense_checks():
 
 def _scaling_row(n, povm1, truth, gen):
     """bench.py's scaling row at n qubits: one 10^4-shot simulation, lin and
-    MLE-60 of it, CUDA-event times, hs to the truth, peak memory."""
+    MLE-60 of it, hs to the truth, peak memory."""
     from quantpy_tpu_torch.tomography import bootstrap_core, kron_core
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {}
-
-    def timed(name, fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = fn()
-        end.record()
-        end.synchronize()
-        out[name] = start.elapsed_time(end)
-        return result
-
-    counts = timed("simulate_ms", lambda: kron_core.kron_simulate(gen, povm1, truth, N_SHOTS))
-    kron_core.kron_estimate_lin(counts, povm1, n)  # warm
-    lin = timed("lin_ms", lambda: kron_core.kron_estimate_lin(counts, povm1, n))
-    mle = timed("mle60_ms",
-                lambda: kron_core.kron_estimate_mle_rhor(counts, povm1, n, max_iter=MLE_ITERS))
+    counts = kron_core.kron_simulate(gen, povm1, truth, N_SHOTS)
+    lin = kron_core.kron_estimate_lin(counts, povm1, n)
+    mle = kron_core.kron_estimate_mle_rhor(counts, povm1, n, max_iter=MLE_ITERS)
     out["lin_hs"] = float(bootstrap_core._distance_batch("hs", lin, truth, n))
     out["mle_hs"] = float(bootstrap_core._distance_batch("hs", mle, truth, n))
+    torch.cuda.synchronize()
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     out["counts_shape"] = list(counts.shape)
     return out
@@ -1293,26 +1166,14 @@ def phase7_kron(card):
     povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=dtype, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(60)
-    b6 = est6.bloch_tensor(dev, dtype)
-
-    def run6():
-        return kron_core.kron_bootstrap_distances(
-            gen, b6, povm1, 6, N_SHOTS, n_points=n_points, method="mle", max_iter=MLE_ITERS)
-
-    ms = cuda_ms(run6, 3)
-    log(f"    6-qubit bootstrap ('mle', {n_points} resamples, RrhoR-{MLE_ITERS}): best of 3 "
-        f"{ms:.3f} ms = {n_points / ms * 1e3:.1f} resamples/s on {card}")
-    log_idle_share("the 6-qubit bootstrap call", run6, ms)
-
     rows = {}
     for n in KRON_SCALING:
         truth = qtt.GHZ(n).bloch_tensor(dev, dtype)
         gen.manual_seed(100 + n)
         rows[n] = row = _scaling_row(n, povm1, truth, gen)
-        log(f"    scaling n={n} counts {tuple(row['counts_shape'])}: simulate "
-            f"{row['simulate_ms']:.3f} ms, lin {row['lin_ms']:.3f} ms, MLE-{MLE_ITERS} "
-            f"{row['mle60_ms']:.3f} ms; hs to the truth lin {row['lin_hs']:.4e}, MLE "
-            f"{row['mle_hs']:.4e}; peak memory {row['peak_mib']:.1f} MiB on {card}")
+        log(f"    scaling n={n} counts {tuple(row['counts_shape'])}, MLE-{MLE_ITERS}: hs to the "
+            f"truth lin {row['lin_hs']:.4e}, MLE {row['mle_hs']:.4e}; peak memory "
+            f"{row['peak_mib']:.1f} MiB on {card}")
         if not 0 <= row["mle_hs"] < TRUTH_HS_LIMIT:
             raise AssertionError(
                 f"{n}-qubit MLE hs to the truth {row['mle_hs']} (limit {TRUTH_HS_LIMIT})")
@@ -1323,22 +1184,16 @@ def phase7_kron(card):
     counts = kron_core.kron_simulate(gen, povm1, qtt.GHZ(n).bloch_tensor(dev, dtype), N_SHOTS)
     center = kron_core.kron_estimate_lin(counts, povm1, n)
     del counts
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     dists = kron_core.kron_bootstrap_distances(
         gen, center, povm1, n, N_SHOTS, n_points=n_points, method="mle", max_iter=MLE_ITERS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     if not bool(torch.isfinite(dists).all()):
         raise AssertionError(f"{n}-qubit bootstrap distances are not finite")
-    log(f"    {n}-qubit bootstrap ('mle', {n_points} resamples, RrhoR-{MLE_ITERS}): "
-        f"{seconds:.3f} s = {n_points / seconds:.3f} resamples/s, median hs "
-        f"{float(dists.median()):.4e} on {card}")
-    log("    scaling rows: " + json.dumps({str(k): v for k, v in rows.items()}))
-    return _kron_clip_row(card, povm1, gen)
+    log(f"    {n}-qubit bootstrap ('mle', {n_points} resamples, RrhoR-{MLE_ITERS}): median hs "
+        f"{float(dists.median()):.4e}")
+    return _kron_clip_row(povm1, gen)
 
 
-def _kron_clip_row(card, povm1, gen):
+def _kron_clip_row(povm1, gen):
     """w8-rhor256's kron bootstrap at KRON_CLIP_ROW: the W state, 'mle-rhor'
     from lin starts, kron_core's own chunks. Raises unless the lin starts
     clip in CLIP_LAUNCHES_PER_CHUNK psd_clip launches a chunk; returns the
@@ -1360,11 +1215,8 @@ def _kron_clip_row(card, povm1, gen):
     chunks = -(-n_points // chunk)
     torch.cuda.synchronize()
     kernels.psd_clip.launches = 0
-    t0 = time.perf_counter()
     dists = kron_core.kron_bootstrap_distances(
         gen, center, povm1, n, N_SHOTS, n_points=n_points, method="mle-rhor", max_iter=MLE_ITERS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = kernels.psd_clip.launches
     if not bool(torch.isfinite(dists).all()):
         raise AssertionError(f"the {n}-qubit W-state bootstrap's distances are not finite")
@@ -1372,9 +1224,8 @@ def _kron_clip_row(card, povm1, gen):
         raise AssertionError(f"the {n}-qubit W-state bootstrap ran {chunks} chunks and {launches} "
                              f"psd_clip launches, not {CLIP_LAUNCHES_PER_CHUNK} per chunk")
     log(f"    {n}-qubit W-state bootstrap ('mle-rhor', {n_points} resamples in {chunks} chunks "
-        f"of up to {chunk}, RrhoR-{MLE_ITERS}): {seconds:.3f} s = {n_points / seconds:.1f} "
-        f"resamples/s, median hs {float(dists.median()):.4e} on {card}; psd_clip launches "
-        f"{launches}")
+        f"of up to {chunk}, RrhoR-{MLE_ITERS}): median hs {float(dists.median()):.4e}; psd_clip "
+        f"launches {launches}")
     return launches
 
 
@@ -1395,15 +1246,13 @@ def _process_small_checks():
     if tmg.device.type != DEVICE or tmg._design()[0].device.type != DEVICE:
         raise AssertionError(f"ProcessTomograph's default device is not {DEVICE}: {tmg.device}")
     truth = tmg.channel.choi
-    nll, seconds = {}, {}
+    nll = {}
     for method in ("lifp", "states", "dys", "pgdb"):
-        t0 = time.perf_counter()
         est = tmg.point_estimate(method)
-        seconds[method] = time.perf_counter() - t0
         hs = float(qtt.hs_dst(est.choi, truth))
         nll[method] = float(tmg._nll(est.choi.bloch))
         log(f"    2 qubits float64 {method:6s}: hs to the true Choi {hs:.4e} (limit "
-            f"{PROC_SMALL_HS_LIMIT}), NLL {nll[method]:.6f}, {seconds[method]:.2f} s")
+            f"{PROC_SMALL_HS_LIMIT}), NLL {nll[method]:.6f}")
         if not est.is_cptp(verbose=False):
             raise AssertionError(f"the 2-qubit '{method}' estimate is not CPTP")
         if not 0 <= hs < PROC_SMALL_HS_LIMIT:
@@ -1471,38 +1320,26 @@ def _process_small_checks():
         if not (np.isfinite(hs) and hs < PROC_SMALL_HS_LIMIT):
             raise AssertionError(f"'states' with '{est_method}' lies {hs} from the truth")
         launches += launched[0]
-
-    # the idle share of a small point estimate: one host sync per Dykstra iteration
-    tmg.point_estimate("lifp")
-    ms = cuda_ms(lambda: tmg.point_estimate("lifp"), 1)
-    log_idle_share("2-qubit point_estimate('lifp'), float64", lambda: tmg.point_estimate("lifp"),
-                   ms)
     return launches
 
 
-def _process_flagship(card):
+def _process_flagship():
     """Phase 8, part 4: bench.py's 4-qubit process bootstrap on the card."""
     import numpy as np
 
     import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch.ops import paulis
-    from quantpy_tpu_torch.tomography import bootstrap_core, process_core
 
     n, shots, n_points = PROC_FLAGSHIP
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         raise AssertionError("TF32 matrix products are on; the Newton-Schulz chain needs them off")
-    t0 = time.perf_counter()
     tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=7)  # default device, float32
     tmg.experiment(shots)
-    t1 = time.perf_counter()
     center = tmg.point_estimate("lifp")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     hs_truth = float(qtt.hs_dst(center.choi, tmg.channel.choi))
     log(f"    ProcessTomograph(depolarizing(0.1, {n})) on {tmg.device} ({tmg.dtype}): "
-        f"{len(tmg.tomographs)} inputs, counts {tmg.results.shape}; construction + experiment "
-        f"{t1 - t0:.2f} s, point_estimate('lifp') {t2 - t1:.2f} s, CPTP "
-        f"{center.is_cptp(atol=1e-3, verbose=False)}, hs to the true Choi {hs_truth:.4e}")
+        f"{len(tmg.tomographs)} inputs, counts {tmg.results.shape}; point_estimate('lifp') "
+        f"CPTP {center.is_cptp(atol=1e-3, verbose=False)}, hs to the true Choi {hs_truth:.4e}")
     if tmg.device.type != DEVICE or tmg.dtype != torch.float32:
         raise AssertionError(f"the flagship tomograph runs on {tmg.device} in {tmg.dtype}")
     if not (center.is_cptp(atol=1e-3, verbose=False) and math.isfinite(hs_truth)):
@@ -1519,22 +1356,22 @@ def _process_flagship(card):
     if audit.wide:
         raise AssertionError(f"float64 operations in the float32 bootstrap: {sorted(audit.wide)}")
 
-    # two seeds, each a new interval, timed whole
-    quantiles, best_ms = [], math.inf
+    # two seeds, each a new interval
+    quantiles = []
     levels = (0.5, 0.9)
     for seed in (9, 10):
         interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(interval.setup, 1)
+        interval.setup()
+        torch.cuda.synchronize()
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
-        best_ms = min(best_ms, ms)
         sample = interval.distances
         if sample.shape != (n_points,) or not np.all(np.isfinite(sample)):
             raise AssertionError("process bootstrap distances not finite or of the wrong shape")
         quantiles.append(interval(levels)[0])
         log(f"    BootstrapProcessInterval(lifp + CPTP, {n_points} resamples), seed {seed}: "
-            f"{ms:.3f} ms, hs at {levels} {[float(x) for x in quantiles[-1]]}, median "
+            f"hs at {levels} {[float(x) for x in quantiles[-1]]}, median "
             f"{float(np.median(sample)):.4e}, peak memory {peak_mib:.1f} MiB")
         if not PROC_MEDIAN_BAND[0] <= float(np.median(sample)) <= PROC_MEDIAN_BAND[1]:
             raise AssertionError(
@@ -1543,36 +1380,12 @@ def _process_flagship(card):
     log(f"    quantiles of the two seeds differ by {spread:.3%} (limit 10%)")
     if not spread <= 0.10:
         raise AssertionError(f"the two seeds' quantiles differ by {spread}")
-    log(f"    process bootstrap, {n} qubits x {len(tmg.tomographs)} inputs x 81 POVMs x {shots} "
-        f"shots x {n_points} resamples, float32: best of 2 {best_ms:.3f} ms = "
-        f"{n_points / best_ms * 1e3:.2f} resamples/s on {card}")
 
-    # the stages of one call, and every resampled Choi matrix
+    # every resampled Choi matrix of one call
     interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=11, channel=center)
     gen = torch.Generator(device=tmg.device)
     gen.manual_seed(11)
-    design = tmg._design()[1:]  # input blochs, POVM, shots
-    iters, chunk = 50 if n <= 4 else 100, 50
-    counts = interval.simulate(gen)
-    raw = process_core.estimate_lifp_factored(counts, *design, cptp=False)
-    chois = interval.estimate(counts)
-    ref = tmg._tensor(center.choi.bloch)
-    stages = {
-        "simulate": lambda: interval.simulate(gen),
-        "raw_lifp": lambda: process_core.estimate_lifp_factored(counts, *design, cptp=False),
-        "ns_dykstra_projection": lambda: process_core.cptp_project_bloch_host(
-            raw, max_iter=iters, chunk=chunk, cp="ns"),
-        "distance": lambda: bootstrap_core._distance_batch("hs", chois, ref, 2 * n),
-    }
-    times = {name: cuda_ms(fn, 2) for name, fn in stages.items()}
-    dim = 4**n
-    tflop = 39 * 8 * dim**3 * iters * n_points / 1e12  # 2 x 19 sign-chain products + 1 for |A|
-    rate = tflop / times["ns_dykstra_projection"] * 1e3
-    log("    stages (ms, best of 2): " + json.dumps({k: round(v, 3) for k, v in times.items()}))
-    log(f"    NS-Dykstra projection: {tflop:.2f} TFLOP of complex {dim}-dim products in "
-        f"{times['ns_dykstra_projection']:.3f} ms = {rate:.2f} TFLOP/s "
-        f"({rate * 1e12 / PEAK_FLOPS['float32']:.3f} of the {PEAK_FLOPS['float32'] / 1e12:.0f} "
-        f"TFLOP/s float32 peak) on {card}")
+    chois = interval.estimate(interval.simulate(gen))
     if chois.dtype != torch.float32 or chois.device.type != DEVICE:
         raise AssertionError(f"the projection returned {chois.dtype} on {chois.device}")
     mats = paulis.bloch_to_matrix(chois, 2 * n)
@@ -1586,18 +1399,13 @@ def _process_flagship(card):
         raise AssertionError(f"a resampled Choi matrix is off TP by {tp_err}")
     if not min_eig >= PROC_MIN_EIG:
         raise AssertionError(f"a resampled Choi matrix has eigenvalue {min_eig}")
-
-    def call():
-        qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=12, channel=center).setup()
-
-    log_idle_share("the process bootstrap call", call, best_ms)
     return tmg
 
 
 def _process_eigh_row(card):
     """Phase 8, part 5: a bootstrap on the 'eigh' engine (the default below
-    4 qubits), one psd_project launch per Dykstra iteration; time, peak
-    memory and the launches, held to the steps. Returns the launches."""
+    4 qubits), one psd_project launch per Dykstra iteration; peak memory
+    and the launches, held to the steps. Returns the launches."""
     import numpy as np
 
     import quantpy_tpu_torch as qtt
@@ -1607,7 +1415,7 @@ def _process_eigh_row(card):
     n, shots, n_points = PROC_EIGH_ROW
     tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=5)
     tmg.experiment(shots)
-    ms_point = cuda_ms(lambda: tmg.point_estimate("lifp"), 1)
+    tmg.point_estimate("lifp")
     interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=6)
     steps = []
     step = process_core._dykstra_step
@@ -1616,7 +1424,7 @@ def _process_eigh_row(card):
     torch.cuda.reset_peak_memory_stats()
     kernels.psd_project.launches = 0
     try:
-        ms = cuda_ms(interval.setup, 1)
+        interval.setup()
     finally:
         process_core._dykstra_step = step
     launches = kernels.psd_project.launches
@@ -1628,9 +1436,7 @@ def _process_eigh_row(card):
     if not np.all(np.isfinite(interval.distances)):
         raise AssertionError(f"{n}-qubit process bootstrap distances are not finite")
     log(f"    {n}-qubit process bootstrap on the 'eigh' engine ({n_points} resamples, {shots} "
-        f"shots, up to 2000 Dykstra iterations of a batched {4**n}-dim eigh): "
-        f"point_estimate('lifp') {ms_point:.1f} ms, bootstrap {ms:.1f} ms = "
-        f"{n_points / ms * 1e3:.3f} resamples/s, median hs "
+        f"shots, up to 2000 Dykstra iterations of a batched {4**n}-dim eigh): median hs "
         f"{float(np.median(interval.distances)):.4e}, peak memory {peak_mib:.1f} MiB on {card}; "
         f"{len(steps)} Dykstra steps, psd_project launches {launches}")
     return launches
@@ -1641,7 +1447,7 @@ def phase8_process(card):
     launches of the 'eigh' bootstrap)."""
     log("[8] process tomography on the card")
     launches = _process_small_checks()
-    tmg = _process_flagship(card)
+    tmg = _process_flagship()
     psd_launches = _process_eigh_row(card)
     return launches, tmg, psd_launches
 
@@ -1796,10 +1602,10 @@ class LPRecorder:
 
 def _row(what, build, card, lp_cap=None):
     """One full-width row of phase 9, part (b): `build()` makes and sets
-    up the row's intervals and returns {name: (interval, seconds)}. A first
-    call runs under DeviceAudit, with every polytope's LP capped at
-    `lp_cap` iterations; the second is timed and read. Returns the second
-    call's intervals and its recorded LP solves (LPRecorder)."""
+    up the row's intervals and returns {name: interval}. A first call runs
+    under DeviceAudit, with every polytope's LP capped at `lp_cap`
+    iterations; the second is read. Returns the second call's intervals and
+    its recorded LP solves (LPRecorder)."""
     from quantpy_tpu_torch.tomography import interval as interval_mod
 
     _reset_launches()
@@ -1822,13 +1628,9 @@ def _row(what, build, card, lp_cap=None):
     return built, recorder.solves
 
 
-def _timed_setup(iv):
-    """Set `iv` up; its wall time in seconds (ends in a synchronize)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def _setup(iv):
     iv.setup()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return iv
 
 
 def _read_lp(name, solves):
@@ -1861,7 +1663,7 @@ def _read_lp(name, solves):
                              "the true point's objective")
 
 
-def _read(name, iv, seconds, banded=False, solves=None):
+def _read(name, iv, banded=False, solves=None):
     """Print an interval's values at ANALYTIC_LEVELS and check them: finite,
     non-negative and non-decreasing radii; bands with min <= max; LP
     iterations within the cap, and a polytope's recorded `solves` through
@@ -1882,45 +1684,11 @@ def _read(name, iv, seconds, banded=False, solves=None):
     if hasattr(iv, "lp_iterations"):
         extra = f", lp_iterations {iv.lp_iterations}"
         ok = ok and max(iv.lp_iterations) <= iv.LP_ITERS
-    log(f"      {name}: {seconds * 1e3:.3f} ms, {text} at cl {ANALYTIC_LEVELS}{extra}")
+    log(f"      {name}: {text} at cl {ANALYTIC_LEVELS}{extra}")
     if not ok:
         raise AssertionError(f"{name}: values fail the interval checks")
     if hasattr(iv, "lp_iterations"):
         _read_lp(name, solves)
-
-
-def _lp_rate(iv, seconds, macs_per_iteration):
-    """Print the PDHG products' rate: 2 MACs-to-FLOPs per counted MAC over
-    every iteration of both directions, against the whole setup's time."""
-    tflop = 2.0 * macs_per_iteration * sum(iv.lp_iterations) / 1e12
-    log(f"      PDHG products {tflop:.3f} TFLOP over {sum(iv.lp_iterations)} iterations in "
-        f"{seconds * 1e3:.3f} ms = {tflop / seconds:.3f} TFLOP/s (a lower bound: the setup's "
-        "time includes the margins and the host work)")
-
-
-def _lp_device_split(what, make):
-    """Print the idle share of a polytope interval's setup with its LP
-    capped at IDLE_LP_ITERS iterations (every PDHG iteration runs the same
-    operations), and the share of the card's busy time spent in GEMM
-    kernels (kernel names holding "gemm"), from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def capped():
-        iv = make()
-        iv.LP_ITERS = IDLE_LP_ITERS
-        iv.setup()
-
-    wall_ms = cuda_ms(capped, 1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        capped()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    gemm = sum(e.self_device_time_total for e in events if "gemm" in e.key.lower()) / 1e3
-    log(f"    {what}, LP capped at {IDLE_LP_ITERS} iterations: device busy {busy:.3f} ms of a "
-        f"{wall_ms:.3f} ms call, idle share {idle_share(busy, wall_ms)}; GEMM kernels "
-        f"{gemm:.3f} ms, other kernels {busy - gemm:.3f} ms")
 
 
 def _analytic_state_rows(card):
@@ -1939,14 +1707,11 @@ def _analytic_state_rows(card):
     def build_dense():
         out = {}
         for distr in ("gamma", "norm", "exp"):
-            iv = qtt.MomentInterval(tmg, distr_type=distr)
-            out[f"MomentInterval('{distr}')"] = (iv, _timed_setup(iv))
-        iv = qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state)
-        out["MomentFidelityStateInterval"] = (iv, _timed_setup(iv))
-        iv = qtt.SugiyamaInterval(tmg)
-        out["SugiyamaInterval"] = (iv, _timed_setup(iv))
-        iv = qtt.PolytopeStateInterval(tmg, n_points=n_points)
-        out["PolytopeStateInterval"] = (iv, _timed_setup(iv))
+            out[f"MomentInterval('{distr}')"] = _setup(qtt.MomentInterval(tmg, distr_type=distr))
+        out["MomentFidelityStateInterval"] = _setup(
+            qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state))
+        out["SugiyamaInterval"] = _setup(qtt.SugiyamaInterval(tmg))
+        out["PolytopeStateInterval"] = _setup(qtt.PolytopeStateInterval(tmg, n_points=n_points))
         return out
 
     m, p, dim = tmg.povm_matrix.shape
@@ -1954,14 +1719,8 @@ def _analytic_state_rows(card):
         f"float32; polytope {n_points} margins x 2 directions of {m * p} constraints x "
         f"{dim - 1} variables")
     rows, solves = _row(f"the dense GHZ-{n} row", build_dense, card, lp_cap=AUDIT_LP_ITERS)
-    for name, (iv, seconds) in rows.items():
-        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
-              solves=solves)
-    poly, poly_s = rows["PolytopeStateInterval"]
-    _lp_rate(poly, poly_s, 2 * n_points * m * p * (dim - 1))
-
-    _lp_device_split(f"the GHZ-{n} polytope interval",
-                     lambda: qtt.PolytopeStateInterval(tmg, n_points=n_points))
+    for name, iv in rows.items():
+        _read(name, iv, banded=name.startswith(("MomentFidelity", "Polytope")), solves=solves)
 
     # float32 against float64 on the same counts at the JAX package's
     # test size (test_polytope_interval_f32_vs_x64)
@@ -1972,11 +1731,10 @@ def _analytic_state_rows(card):
     got = {}
     for label, t in (("float32", tmg), ("float64", twin64)):
         iv = qtt.PolytopeStateInterval(t, n_points=ANALYTIC_F64_POINTS)
-        seconds = _timed_setup(iv)
         (lo, hi), _ = iv(cl)
         got[label] = np.concatenate([lo, hi])
         log(f"      PolytopeStateInterval(n_points={ANALYTIC_F64_POINTS}) in {label}: "
-            f"{seconds * 1e3:.3f} ms, lp_iterations {iv.lp_iterations}")
+            f"lp_iterations {iv.lp_iterations}")
         if max(iv.lp_iterations) > iv.LP_ITERS:
             raise AssertionError(f"{label} polytope LP ran past its cap")
     gap = float(np.max(np.abs(got["float32"] - got["float64"])))
@@ -1992,27 +1750,22 @@ def _analytic_state_rows(card):
         raise AssertionError(f"StateTomograph(GHZ({n})) is not in kron mode")
 
     def build_kron():
-        out = {}
-        iv = qtt.MomentInterval(tmg)
-        out["MomentInterval (kron_l2_moments)"] = (iv, _timed_setup(iv))
-        iv = qtt.SugiyamaInterval(tmg)
-        out["SugiyamaInterval (kron_sugiyama_c_alpha)"] = (iv, _timed_setup(iv))
-        iv = qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state)
-        out["MomentFidelityStateInterval"] = (iv, _timed_setup(iv))
-        iv = qtt.PolytopeStateInterval(tmg, n_points=n_points)
-        out["PolytopeStateInterval (solve_lp_batch_kron)"] = (iv, _timed_setup(iv))
-        return out
+        return {
+            "MomentInterval (kron_l2_moments)": _setup(qtt.MomentInterval(tmg)),
+            "SugiyamaInterval (kron_sugiyama_c_alpha)": _setup(qtt.SugiyamaInterval(tmg)),
+            "MomentFidelityStateInterval": _setup(
+                qtt.MomentFidelityStateInterval(tmg, target_state=tmg.state)),
+            "PolytopeStateInterval (solve_lp_batch_kron)": _setup(
+                qtt.PolytopeStateInterval(tmg, n_points=n_points)),
+        }
 
     shape = tmg.results.shape
     log(f"    state, kron: GHZ({n}) in kron mode, counts {shape}, {shots} shots, float32; "
         f"polytope {n_points} margins of {shape[0] * shape[1]} constraints x {4**n - 1} "
         "variables")
     rows, solves = _row(f"the kron GHZ-{n} row", build_kron, card, lp_cap=AUDIT_LP_ITERS)
-    for name, (iv, seconds) in rows.items():
-        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
-              solves=solves)
-    _lp_device_split(f"the kron GHZ-{n} polytope interval",
-                     lambda: qtt.PolytopeStateInterval(tmg, n_points=n_points))
+    for name, iv in rows.items():
+        _read(name, iv, banded=name.startswith(("MomentFidelity", "Polytope")), solves=solves)
 
 
 def _analytic_channel_rows(card):
@@ -2028,36 +1781,26 @@ def _analytic_channel_rows(card):
     dim = 4**n
 
     def build():
-        out = {}
-        iv = qtt.MomentInterval(tmg)
-        out["MomentInterval (per-state Grams)"] = (iv, _timed_setup(iv))
-        iv = qtt.MomentFidelityProcessInterval(tmg)
-        out["MomentFidelityProcessInterval"] = (iv, _timed_setup(iv))
+        out = {"MomentInterval (per-state Grams)": _setup(qtt.MomentInterval(tmg)),
+               "MomentFidelityProcessInterval": _setup(qtt.MomentFidelityProcessInterval(tmg))}
         for kind in ("moment", "sugiyama"):
-            iv = qtt.HolderInterval(tmg, kind=kind)
-            out[f"HolderInterval('{kind}'), {n_in} children"] = (iv, _timed_setup(iv))
-        iv = qtt.PolytopeProcessInterval(tmg, n_points=n_points)
-        out["PolytopeProcessInterval (solve_lp_batch_factors)"] = (iv, _timed_setup(iv))
+            out[f"HolderInterval('{kind}'), {n_in} children"] = _setup(
+                qtt.HolderInterval(tmg, kind=kind))
+        out["PolytopeProcessInterval (solve_lp_batch_factors)"] = _setup(
+            qtt.PolytopeProcessInterval(tmg, n_points=n_points))
         return out
 
     log(f"    channel: depolarizing(0.1, {n}), {n_in} proj4 inputs, proj-set ({m} x {p}), "
         f"{shots} shots, float32; polytope {n_points} margins of ({n_in} x {m * p}) "
         f"constraints x {dim * (dim - 1)} variables, two-factor")
     rows, solves = _row(f"the {n}-qubit channel row", build, card, lp_cap=AUDIT_LP_ITERS)
-    for name, (iv, seconds) in rows.items():
-        _read(name, iv, seconds, banded=name.startswith(("MomentFidelity", "Polytope")),
-              solves=solves)
-    poly, poly_s = rows["PolytopeProcessInterval (solve_lp_batch_factors)"]
-    # per iteration: forward left-first and adjoint right-first, each
-    # P S A B + P S B K MACs
-    _lp_rate(poly, poly_s, 2 * n_points * n_in * (dim - 1) * (dim + m * p))
-    _lp_device_split(f"the {n}-qubit process polytope interval",
-                     lambda: qtt.PolytopeProcessInterval(tmg, n_points=n_points))
-    exact = rows["MomentInterval (per-state Grams)"][0]
+    for name, iv in rows.items():
+        _read(name, iv, banded=name.startswith(("MomentFidelity", "Polytope")), solves=solves)
+    exact = rows["MomentInterval (per-state Grams)"]
 
     def build_stochastic():
-        iv = qtt.MomentInterval(tmg)
-        return {"MomentInterval (channel_l2_moments_kron, 128 probes)": (iv, _timed_setup(iv))}
+        return {"MomentInterval (channel_l2_moments_kron, 128 probes)":
+                _setup(qtt.MomentInterval(tmg))}
 
     saved = interval_mod._CHANNEL_EXACT_GRAM_MAX
     interval_mod._CHANNEL_EXACT_GRAM_MAX = 1
@@ -2065,8 +1808,8 @@ def _analytic_channel_rows(card):
         stochastic, _ = _row(f"the {n}-qubit stochastic channel row", build_stochastic, card)
     finally:
         interval_mod._CHANNEL_EXACT_GRAM_MAX = saved
-    (name, (iv, seconds)), = stochastic.items()
-    _read(name, iv, seconds)
+    (name, iv), = stochastic.items()
+    _read(name, iv)
     mean_rel = abs(iv.mean - exact.mean) / abs(exact.mean)
     var_rel = abs(iv.variance - exact.variance) / abs(exact.variance)
     log(f"      against the exact row: mean {mean_rel:.3e} (limit {STOCH_MEAN_REL:.0e}), "
@@ -2103,12 +1846,10 @@ def _coverage_rows(card):
         _check_no_kernel_and_on_card(audit, what)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         cov = run(n_trials)
-        seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**20
-        log(f"    {what}, 18 levels in [0.05, 0.99], {n_trials} trials: {seconds:.3f} s = "
-            f"{n_trials / seconds:.1f} trials/s, peak memory {peak:.1f} MiB on {card}")
+        log(f"    {what}, 18 levels in [0.05, 0.99], {n_trials} trials: peak memory "
+            f"{peak:.1f} MiB on {card}")
         log(f"      coverage {[round(float(c), 4) for c in cov]}")
         if not (np.all(cov >= levels - 0.05) and np.all(np.diff(cov) >= -0.05)):
             raise AssertionError(f"{what}: coverage under its levels or falling: {cov}")
@@ -2116,43 +1857,13 @@ def _coverage_rows(card):
 
 def phase9_intervals(card):
     log("[9] the analytic confidence intervals on the card")
-    t0 = time.perf_counter()
     _analytic_small_checks()
     _analytic_state_rows(card)
     _analytic_channel_rows(card)
     _coverage_rows(card)
-    log(f"    phase 9: {time.perf_counter() - t0:.1f} s")
 
 
 # -- phase 10: the MCMC intervals -----------------------------------------------
-
-
-class StepCounter:
-    """Counts the steps of every device chain run while it is active, by
-    wrapping `mhmc._run_chain`: `steps` the loop's iterations, `chain_steps`
-    those times the chains side by side."""
-
-    def __init__(self):
-        self.steps = self.chain_steps = 0
-
-    def __enter__(self):
-        from quantpy_tpu_torch import mhmc
-
-        self._run_chain = run_chain = mhmc._run_chain
-
-        def counted(gen, x0, *args, **kwargs):
-            n_steps = int(args[4])
-            self.steps += n_steps
-            self.chain_steps += n_steps * max(1, x0[..., 0].numel())
-            return run_chain(gen, x0, *args, **kwargs)
-
-        mhmc._run_chain = counted
-        return self
-
-    def __exit__(self, *exc):
-        from quantpy_tpu_torch import mhmc
-
-        mhmc._run_chain = self._run_chain
 
 
 def _close(what, card_vals, cpu_vals, tol=MCMC_CARD_TOL):
@@ -2299,9 +2010,8 @@ def _audited(what, run, allowed, **small):
     """Run `run(**small)`, a short pass of a row, under the device audit:
     no kernel launch, nothing off the card and no float64 operation outside
     `allowed`. Then run the row itself, `run()`, unaudited (the audit's
-    Python dispatch would slow it): no kernel launch. Returns run()'s value,
-    its wall time in seconds and its StepCounter; the peak memory counts
-    from its start."""
+    Python dispatch would slow it): no kernel launch. Returns run()'s value;
+    the peak memory counts from its start."""
     _reset_launches()
     audit = DeviceAudit()
     with audit:
@@ -2315,40 +2025,23 @@ def _audited(what, run, allowed, **small):
     _reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with StepCounter() as counter:
-        out = run()
-        torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    out = run()
     from quantpy_tpu_torch.ops import kernels
 
     launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
     log(f"    {what}: rhor_mle / rhor_mle_flat launches {launched} (the unaudited run)")
     if launched != (0, 0):
         raise AssertionError(f"{what} launched an RrhoR kernel: {launched}")
-    return out, seconds, counter
+    return out
 
 
-def _span_idle_share(what, chain, x, n_steps=None):
-    """The idle share of `n_steps` (default MCMC_IDLE_STEPS) steps of
-    `chain` from the states x."""
-    n_steps = n_steps or MCMC_IDLE_STEPS
-    chain._run_span(x, n_steps)  # warm
-    wall = cuda_ms(lambda: chain._run_span(x, n_steps), 1)
-    log_idle_share(f"{what}, {n_steps} steps of {max(1, x[..., 0].numel())} chains", lambda:
-                   chain._run_span(x, n_steps), wall)
-    return wall / n_steps
-
-
-def _print_chain_row(name, iv, seconds, counter, card, levels=(0.5, 0.9)):
+def _print_chain_row(name, iv, card, levels=(0.5, 0.9)):
     import numpy as np
 
     dist, _ = iv(np.asarray(levels))
     if not (np.all(np.isfinite(dist)) and np.all(np.diff(dist) >= 0)):
         raise AssertionError(f"{name}: distances {dist} not finite and non-decreasing")
-    log(f"      {name}: {seconds:.3f} s, {counter.steps} steps ({counter.chain_steps} chain-steps) "
-        f"= {counter.steps / seconds:.1f} steps/s ({counter.chain_steps / seconds:.1f} "
-        f"chain-steps/s); acceptance {iv.acceptance_rate:.4f}, step {iv.chain.step:.4g}; R-hat "
+    log(f"      {name}: acceptance {iv.acceptance_rate:.4f}, step {iv.chain.step:.4g}; R-hat "
         f"{iv.r_hat:.4f}, ESS {iv.ess:.1f}; d50/d90 {[round(float(v), 6) for v in dist]}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {card}")
     return dist
@@ -2367,34 +2060,23 @@ def _mcmc_state_rows(card, tmg, est, allowed):
             tmg, n_points=n_points, burn_steps=burn_steps, adapt_step=adapt_step,
             n_chains=n_chains, key=31))
 
-    iv, seconds, counter = _audited("MHMCStateInterval", state_interval, allowed,
-                                    **MCMC_AUDIT_STATE)
+    iv = _audited("MHMCStateInterval", state_interval, allowed, **MCMC_AUDIT_STATE)
     log(f"    (b) MHMCStateInterval on GHZ({N_QUBITS}), proj-set, {N_SHOTS} shots, float32: "
         f"n_points {n_points}, burn_steps {burn}, adapt_step, {n_chains} chains")
-    _print_chain_row("MHMCStateInterval", iv, seconds, counter, card)
-    x = iv.chain.x_t.expand(n_chains, -1).clone()
-    ms = _span_idle_share("the state chain", iv.chain, x)
-    log(f"      one step of {n_chains} chains: {ms:.3f} ms")
+    _print_chain_row("MHMCStateInterval", iv, card)
 
     def bme(**small):
         return qtt.bayesian_mean_estimate(tmg, key=32, **small)
 
-    (rho, radius, diag), seconds, counter = _audited("bayesian_mean_estimate", bme, allowed,
-                                                     **MCMC_AUDIT_BME)
+    rho, radius, diag = _audited("bayesian_mean_estimate", bme, allowed, **MCMC_AUDIT_BME)
     hs_bme = float(qtt.hs_dst(rho, tmg.state))
     hs_rhor = float(qtt.hs_dst(est, tmg.state))
     log(f"    (c) bayesian_mean_estimate (8 chains x 500 samples, thinning 2, burn 500, adapt): "
-        f"{seconds:.3f} s, {counter.steps} steps ({counter.chain_steps} chain-steps); acceptance "
-        f"{diag['acceptance_rate']:.4f}, step {diag['step']:.4g}; credible radius (0.9) "
+        f"acceptance {diag['acceptance_rate']:.4f}, step {diag['step']:.4g}; credible radius (0.9) "
         f"{radius:.6f}; hs to the true state: posterior mean {hs_bme:.6f}, RrhoR estimate "
         f"{hs_rhor:.6f}")
     if not (rho.is_density_matrix(verbose=False) and 0 < radius < 1 and hs_bme < 0.1):
         raise AssertionError(f"the posterior mean is off: radius {radius}, hs {hs_bme}")
-
-
-def _setup(iv):
-    iv.setup()
-    return iv
 
 
 def _check_cptp_samples(what, mats):
@@ -2434,22 +2116,19 @@ def _mcmc_process_rows(card, tmg4, allowed):
             return_samples=True, key=7, **options)
         return out, out.setup()[3]
 
-    (iv, samples), seconds, counter = _audited(f"the {n}-qubit kraus-MALA interval",
-                                               posterior, allowed, **MCMC_AUDIT_PROCESS)
+    iv, samples = _audited(f"the {n}-qubit kraus-MALA interval", posterior, allowed,
+                           **MCMC_AUDIT_PROCESS)
     log(f"    (d) MHMCProcessInterval, depolarizing(0.15, {n}), proj-set, {shots} shots, "
         f"float32: anchored kraus-MALA, whitened, mode_seek 500, 32 curvature probes, "
         f"{n_chains} chains, thinning {thinning}, {n_points} points, burn {burn} (the example's "
         "600 points and 4,000 burn-in steps cut to fit phase 10's time), adapt")
-    dist = _print_chain_row("kraus-MALA", iv, seconds, counter, card)
+    dist = _print_chain_row("kraus-MALA", iv, card)
     _check_cptp_samples("kraus-MALA", samples)
     boot = qtt.BootstrapProcessInterval(tmg, n_points=MCMC_BOOT_POINTS, key=8, cp_engine="ns")
     boot_dist, _ = boot(np.array([0.5, 0.9]))
     log(f"      beside BootstrapProcessInterval({MCMC_BOOT_POINTS} resamples, the 'ns' engine) d50/d90 "
         f"{[round(float(v), 6) for v in boot_dist]}; chain / bootstrap "
         f"{[round(float(a / b), 4) for a, b in zip(dist, boot_dist)]}")
-    x = iv.chain.x_t.expand(n_chains, -1).clone()
-    ms = _span_idle_share("the 3-qubit kraus-MALA chain", iv.chain, x)
-    log(f"      one step of {n_chains} chains: {ms:.3f} ms")
 
     n4 = tmg4.channel.n_qubits
     seek, burn4, points4 = MCMC_FOUR
@@ -2461,29 +2140,24 @@ def _mcmc_process_rows(card, tmg4, allowed):
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        iv4, seconds, counter = _audited(f"the {n4}-qubit kraus-MALA chain", four, allowed,
-                                         **MCMC_AUDIT_FOUR)
+        iv4 = _audited(f"the {n4}-qubit kraus-MALA chain", four, allowed, **MCMC_AUDIT_FOUR)
     fired = any(issubclass(w.category, RuntimeWarning) and "NOT converged" in str(w.message)
                 and f"R-hat {iv4.r_hat:.2f}" in str(w.message) for w in caught)
     log(f"    (e) {n4} qubits, depolarizing(0.1, {n4}), {len(tmg4.tomographs)} inputs, proj-set, "
         f"2000 shots, float32: anchored kraus-MALA, mode_seek {seek}, burn {burn4}, "
         f"{points4} points, 1 chain, no adaptation")
-    _print_chain_row("kraus-MALA", iv4, seconds, counter, card)
-    log(f"      {seconds / counter.steps * 1e3:.3f} ms per step (mode seeking and the curvature "
-        f"probes included); the non-convergence RuntimeWarning fired: {fired}")
-    ms = _span_idle_share(f"the {n4}-qubit kraus-MALA chain", iv4.chain, iv4.chain.x_t)
-    log(f"      one step: {ms:.3f} ms")
+    _print_chain_row("kraus-MALA", iv4, card)
+    log(f"      the non-convergence RuntimeWarning fired: {fired}")
     _anchored_rounding_field(iv4)
 
     def projected(n_points=MCMC_PROJECTED_STEPS):
         return _setup(qtt.MHMCProcessInterval(tmg4, n_points=n_points, burn_steps=0,
                                               proposal="mala", step=1e-3, key=10))
 
-    iv4b, seconds, counter = _audited(f"the {n4}-qubit projected 'bloch' MALA chain",
-                                      projected, allowed, n_points=1)
+    iv4b = _audited(f"the {n4}-qubit projected 'bloch' MALA chain", projected, allowed,
+                    n_points=1)
     log(f"      projected-target 'bloch' MALA (K-FAC whitened, NS Dykstra 100 with autograd), "
-        f"{counter.steps} steps: {seconds:.3f} s = {seconds / counter.steps * 1e3:.1f} ms per "
-        f"step with the setup and the reported projections; acceptance "
+        f"{MCMC_PROJECTED_STEPS} points: acceptance "
         f"{iv4b.acceptance_rate:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
         f"MiB on {card}")
 
@@ -2521,7 +2195,7 @@ def _anchored_rounding_field(iv):
         f"[{values[torch.float64].min():.3f}, {values[torch.float64].max():.3f}]")
 
 
-def _mcmc_holder_and_metrics(card, allowed):
+def _mcmc_holder_and_metrics(allowed):
     """Phase 10, parts (f) and (g)."""
     import numpy as np
 
@@ -2540,12 +2214,12 @@ def _mcmc_holder_and_metrics(card, allowed):
         return _setup(qtt.HolderInterval(process, n_points=n_points, kind="mhmc",
                                          burn_steps=burn_steps))
 
-    iv, seconds, counter = _audited("HolderInterval('mhmc')", holder, allowed, process=small,
-                                    n_points=8, burn_steps=8)
+    iv = _audited("HolderInterval('mhmc')", holder, allowed, process=small, n_points=8,
+                  burn_steps=8)
     dist, _ = iv(np.asarray(ANALYTIC_LEVELS))
     log(f"    (f) HolderInterval('mhmc'), depolarizing(0.1, 2), {len(tmg.tomographs)} children, "
-        f"n_points {n_points}, burn {burn}, float32: {seconds:.3f} s, {counter.steps} steps; "
-        f"radii {[round(float(v), 6) for v in dist]} at cl {ANALYTIC_LEVELS}")
+        f"n_points {n_points}, burn {burn}, float32: radii "
+        f"{[round(float(v), 6) for v in dist]} at cl {ANALYTIC_LEVELS}")
     if not (np.all(np.isfinite(dist)) and np.all(dist >= 0) and np.all(np.diff(dist) >= 0)):
         raise AssertionError(f"HolderInterval('mhmc') radii {dist} not finite and monotone")
 
@@ -2561,8 +2235,8 @@ def _mcmc_holder_and_metrics(card, allowed):
 
     for what, run in (("get_CL_list_state(GHZ(2), 'mhmc')", levels_state),
                       ("get_CL_list_channel(depolarizing(0.1, 1), 'mhmc')", levels_channel)):
-        levels, seconds, _ = _audited(what, run, allowed, n_points=8, burn_steps=8)
-        log(f"    (g) {what}, 2 experiments: {seconds:.3f} s, achieved levels "
+        levels = _audited(what, run, allowed, n_points=8, burn_steps=8)
+        log(f"    (g) {what}, 2 experiments: achieved levels "
             f"{[round(float(v), 4) for v in levels]}")
         if not (levels.shape == (2,) and np.all((levels >= 0) & (levels <= 1))):
             raise AssertionError(f"{what}: levels {levels} outside [0, 1]")
@@ -2570,64 +2244,44 @@ def _mcmc_holder_and_metrics(card, allowed):
 
 def phase10_mcmc(card, tmg, est, tmg4):
     log("[10] the MCMC intervals on the card")
-    t0 = time.perf_counter()
     log("    (a) 2 qubits, float64, the card against the CPU")
     _mcmc_small_checks()
     allowed = _allowed_wide_ops()
     log(f"    float64 operations of the anchored NLL's reduction, the only ones allowed in the "
         f"float32 rows: {sorted(allowed)}")
-    log(f"    (a): {time.perf_counter() - t0:.1f} s")
-    for part, run in (("(b), (c)", lambda: _mcmc_state_rows(card, tmg, est, allowed)),
-                      ("(d), (e)", lambda: _mcmc_process_rows(card, tmg4, allowed)),
-                      ("(f), (g)", lambda: _mcmc_holder_and_metrics(card, allowed))):
-        t1 = time.perf_counter()
-        run()
-        log(f"    {part}: {time.perf_counter() - t1:.1f} s")
-    log(f"    phase 10: {time.perf_counter() - t0:.1f} s")
+    _mcmc_state_rows(card, tmg, est, allowed)
+    _mcmc_process_rows(card, tmg4, allowed)
+    _mcmc_holder_and_metrics(allowed)
 
 
 def _counted(what, fn, tally, b1=None):
     """Run fn() once as a counted run of phase 11's main path: every kernel's
     count set to 0 just before and read just after. rhor_mle_flat must not
     launch, rhor_mle `b1` times where given. Adds the rhor_mle launches to
-    `tally` and returns (fn's value, wall seconds, rhor_mle launches)."""
+    `tally` and returns (fn's value, rhor_mle launches)."""
     from quantpy_tpu_torch.ops import kernels
 
     _reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     b1_n, b2_n = kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches
     tally[0] += b1_n
     if b2_n:
         raise AssertionError(f"{what} launched rhor_mle_flat {b2_n} times")
     if b1 is not None and b1_n != b1:
         raise AssertionError(f"{what} launched rhor_mle {b1_n} times, expected {b1}")
-    return out, seconds, b1_n
+    return out, b1_n
 
 
-def _audited_busy_ms(what, fn, profile):
-    """fn() once more under the device audit and, with `profile`,
-    torch.profiler: raise if an operation ran off DEVICE; return the
-    device's busy milliseconds (the audit slows the host, not the card's
-    kernels; None unprofiled) and the aten ops seen."""
+def _audited_rerun(what, fn):
+    """fn() once more under the device audit: raise if an operation ran off
+    DEVICE; return the aten ops seen."""
     audit = DeviceAudit()
-
-    def run():
-        with audit:
-            fn()
-            torch.cuda.synchronize()
-
-    busy = None
-    if profile:
-        busy = device_busy_ms(run)
-    else:
-        run()
+    with audit:
+        fn()
+        torch.cuda.synchronize()
     if audit.off_device:
         raise AssertionError(f"{what}: operations off {DEVICE}: {sorted(audit.off_device)}")
-    return busy, audit.n_ops
+    return audit.n_ops
 
 
 def _check_cli_output(what, out, kind, n_levels):
@@ -2646,21 +2300,10 @@ def _check_cli_output(what, out, kind, n_levels):
         raise AssertionError(f"{what}: implausible output {out}")
 
 
-def _cli_invocation(what, module, kind, path, argv, tally, timer, b1, profile=False):
+def _cli_invocation(what, module, kind, path, argv, tally, timer, b1):
     """One console invocation, `module.main(["-i", path, ...argv])`, on the
-    card: the host's share (parsing, validation, the tomograph), the counted
-    run timed in `timer`'s stage `what`, its output checked, then an
-    audited rerun, profiled with `profile` for the device's busy time.
-    Returns the output and the wall seconds."""
-    from quantpy_tpu_torch.cli import common
-
-    t0 = time.perf_counter()
-    doc = common.load_input(path)
-    t1 = time.perf_counter()
-    common.validate_record(doc, kind)
-    t2 = time.perf_counter()
-    module._build_tomograph(doc, DEVICE)
-    t3 = time.perf_counter()
+    card: the counted run in `timer`'s stage `what`, its output checked,
+    then an audited rerun. Returns the output."""
     out_path = f"{path}.{what.replace(' ', '_')}.out.json"
     args = ["-i", path, "-o", out_path, "--device", DEVICE] + argv
 
@@ -2668,28 +2311,23 @@ def _cli_invocation(what, module, kind, path, argv, tally, timer, b1, profile=Fa
         with timer.stage(what):
             module.main(args)
 
-    _, seconds, launched = _counted(what, invoke, tally, b1)
+    _, launched = _counted(what, invoke, tally, b1)
     with open(out_path) as fp:
         out = json.load(fp)
     _check_cli_output(what, out, kind, len(CLI_LEVELS))
-    busy, n_ops = _audited_busy_ms(what, lambda: module.main(args), profile)
-    device = (f"device busy {busy / 1e3:.3f} s in the audited rerun, idle share "
-              f"{idle_share(busy, seconds * 1e3)}" if profile else "the audited rerun unprofiled")
-    log(f"    {what}: {seconds:.3f} s (host: parse {t1 - t0:.3f}, validate {t2 - t1:.3f}, "
-        f"tomograph {t3 - t2:.3f} s); {device} ({n_ops} aten ops, all on {DEVICE}); "
-        f"rhor_mle launches {launched}; hs radii "
+    n_ops = _audited_rerun(what, lambda: module.main(args))
+    log(f"    {what}: audited rerun {n_ops} aten ops, all on {DEVICE}; rhor_mle launches "
+        f"{launched}; hs radii "
         f"{[round(v, 6) for v in out['hs_radius']]}, fidelity band "
         f"[{out['fidelity_min'][-1]:.6f}, {out['fidelity_max'][-1]:.6f}] at "
         f"{CLI_LEVELS[-1]}")
-    return out, seconds
+    return out
 
 
 def _write_record(path, doc):
-    t0 = time.perf_counter()
     with open(path, "w") as fp:
         json.dump(doc, fp)
-    log(f"    record {Path(path).name}: {Path(path).stat().st_size / 2**20:.1f} MiB, "
-        f"written in {time.perf_counter() - t0:.2f} s")
+    log(f"    record {Path(path).name}: {Path(path).stat().st_size / 2**20:.1f} MiB")
     return path
 
 
@@ -2717,17 +2355,14 @@ def _cli_state_rows(card, tmg, tmp, tally, timer):
     )
     for what, argv, b1 in rows:
         _cli_invocation(f"state {what}", state_interval, "state", path,
-                        ["--method", "mle-rhor"] + argv, tally, timer, b1,
-                        profile=what == "bootstrap")
+                        ["--method", "mle-rhor"] + argv, tally, timer, b1)
     # the console entry as a user runs it, in a process of its own
     out_path = f"{tmp}/console.out.json"
-    t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "quantpy_tpu_torch.cli.state_interval", "-i", path, "-o",
          out_path, "--no-ci", "--device", DEVICE],
         capture_output=True, text=True, timeout=300, cwd=str(REPO),
     )
-    seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise AssertionError(f"python -m quantpy_tpu_torch.cli.state_interval failed:\n"
                              f"{res.stderr[-2000:]}")
@@ -2735,15 +2370,14 @@ def _cli_state_rows(card, tmg, tmp, tally, timer):
         console = json.load(fp)["state"]
     here = state_interval.run(state_interval.load_input(path), no_ci=True, device=DEVICE)
     gap = float(np.max(np.abs(np.subtract(console, here["state"]))))
-    log(f"    python -m quantpy_tpu_torch.cli.state_interval --no-ci: {seconds:.2f} s in its own "
-        f"process (interpreter, imports and the card's start included); its 'lin' state "
-        f"against this process's: max |diff| {gap:.3e}")
+    log(f"    python -m quantpy_tpu_torch.cli.state_interval --no-ci in a process of its own: "
+        f"its 'lin' state against this process's: max |diff| {gap:.3e}")
     if not gap <= 1e-6:
         raise AssertionError(f"the console entry's state differs from run()'s by {gap}")
     return path
 
 
-def _cli_kron_rows(card, tmp, tally, timer):
+def _cli_kron_rows(tmp, tally, timer):
     """Phase 11, part (b): the state CLI on a kron-mode record."""
     import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch.cli import state_interval
@@ -2765,11 +2399,10 @@ def _cli_kron_rows(card, tmp, tally, timer):
     for what, argv in (("moment", ["--interval", "moment"]),
                        ("bootstrap", ["--interval", "bootstrap", "--n-points", str(n_boot)])):
         _cli_invocation(f"kron {what}", state_interval, "state", path,
-                        ["--method", "mle-rhor"] + argv, tally, timer, 0,
-                        profile=what == "bootstrap")
+                        ["--method", "mle-rhor"] + argv, tally, timer, 0)
 
 
-def _cli_process_rows(card, tmg4, tmp, tally, timer):
+def _cli_process_rows(tmg4, tmp, tally, timer):
     """Phase 11, part (c): the process CLI on phase 8's 4-qubit record."""
     from quantpy_tpu_torch.cli import process_interval
 
@@ -2787,8 +2420,7 @@ def _cli_process_rows(card, tmg4, tmp, tally, timer):
                        ("bootstrap", ["--interval", "bootstrap", "--n-points",
                                       str(CLI_PROCESS_POINTS)])):
         _cli_invocation(f"process {what}", process_interval, "process", path,
-                        ["--method", "lifp"] + argv, tally, timer, 0,
-                        profile=what == "bootstrap")
+                        ["--method", "lifp"] + argv, tally, timer, 0)
 
 
 @contextlib.contextmanager
@@ -2868,9 +2500,9 @@ def _cli_small_checks():
         raise AssertionError(f"(d) float32 outputs {gaps[key]} from float64: {key}")
 
 
-def _utility_rows(card, path, tally, timer, rate_ms):
+def _utility_rows(path, tally, timer):
     """Phase 11, part (e): resumable_bootstrap on (a)'s tomograph, the
-    StageTimer report of (a) to (c) and a trace of one bootstrap call."""
+    StageTimer's stages of (a) to (c) and a trace of one bootstrap call."""
     import numpy as np
 
     from quantpy_tpu_torch.cli import state_interval
@@ -2887,30 +2519,28 @@ def _utility_rows(card, path, tally, timer, rate_ms):
         return resumable_bootstrap(str(tmp / name), tmg, points, chunk_size=chunk,
                                    method="mle-rhor", max_iter=MLE_ITERS, seed=11)
 
-    full, seconds, _ = _counted("the uninterrupted resumable_bootstrap",
-                                lambda: boot("full.npz", n_points), tally,
-                                n_chunks * B1_PER_F32_BATCH)
+    full, _ = _counted("the uninterrupted resumable_bootstrap",
+                       lambda: boot("full.npz", n_points), tally, n_chunks * B1_PER_F32_BATCH)
     _counted("the interrupted resumable_bootstrap", lambda: boot("resumed.npz", n_before * chunk),
              tally, n_before * B1_PER_F32_BATCH)
     saved = ChunkedAccumulator(str(tmp / "resumed.npz"))
-    resumed, _, _ = _counted("the resumed resumable_bootstrap", lambda: boot("resumed.npz", n_points),
-                             tally, (n_chunks - n_before) * B1_PER_F32_BATCH)
+    resumed, _ = _counted("the resumed resumable_bootstrap", lambda: boot("resumed.npz", n_points),
+                          tally, (n_chunks - n_before) * B1_PER_F32_BATCH)
     gap = float(np.max(np.abs(resumed - full)))
-    single = rate_ms / 1e3
     log(f"    (e) resumable_bootstrap, {n_points} resamples of RrhoR-{MLE_ITERS} in chunks of "
-        f"{chunk} on (a)'s tomograph: {seconds:.3f} s = {n_points / seconds:.1f} resamples/s "
-        f"with {n_chunks} .npz flushes, against phase 4's single call {N_POINTS / single:.1f}/s; "
-        f"interrupted after {saved.n_chunks} chunks ({saved.n_done} samples) and resumed: max "
-        f"|diff| to the uninterrupted run {gap:.3e}; median {np.median(full):.4e}")
+        f"{chunk} on (a)'s tomograph, {n_chunks} .npz flushes: interrupted after "
+        f"{saved.n_chunks} chunks ({saved.n_done} samples) and resumed, max |diff| to the "
+        f"uninterrupted run {gap:.3e}; median {np.median(full):.4e}")
     if not (full.shape == (n_points,) and np.all(np.isfinite(full)) and gap <= 1e-7):
         raise AssertionError(f"the resumed bootstrap differs from the uninterrupted one: {gap}")
-    log(f"    StageTimer over (a)-(c), seconds: "
-        f"{json.dumps({k: round(v, 4) for k, v in timer.report().items()})}")
+    stages = timer.report()
+    log(f"    StageTimer over (a)-(c): stages {sorted(stages)}")
+    if len(stages) != 8 or not all(math.isfinite(v) and v > 0 for v in stages.values()):
+        raise AssertionError(f"the StageTimer reports {stages}, not (a)-(c)'s 8 invocations")
     trace_dir = tmp / "trace"
     bloch = tmg._tensor(tmg.reconstructed_state.bloch)
     gen = torch.Generator(device=tmg.device)
     gen.manual_seed(5)
-    t0 = time.perf_counter()
     with trace(str(trace_dir), device=DEVICE):
         bootstrap_core.bootstrap_distances(
             gen, bloch, tmg._tensor(tmg.povm_matrix), tmg._tensor(tmg.n_measurements),
@@ -2919,8 +2549,7 @@ def _utility_rows(card, path, tally, timer, rate_ms):
     text = files[0].read_text() if len(files) == 1 else ""
     named = "rhor_mle_kernel" in text
     log(f"    trace() around one {chunk}-resample bootstrap_distances call: "
-        f"{time.perf_counter() - t0:.2f} s, {len(text) / 2**20:.2f} MiB Chrome trace; names "
-        f"the rhor_mle kernel: {named}")
+        f"{len(text) / 2**20:.2f} MiB Chrome trace; names the rhor_mle kernel: {named}")
     if len(files) != 1 or (B1_PER_F32_BATCH and not named):
         raise AssertionError(f"trace() wrote {files}; the rhor_mle kernel named: {named}")
 
@@ -2996,19 +2625,13 @@ def _example_rows(card, tally):
     )
     log(f"    (f) the examples, figures off, on {card}")
     for what, run in rows:
-        _, seconds, launched = _counted(what, run, tally)
-        audit = DeviceAudit()
-        t0 = time.perf_counter()
-        with audit, _short_loops(), contextlib.redirect_stdout(None):
-            run()
-            torch.cuda.synchronize()
-        log(f"    {what}: {seconds:.3f} s; rhor_mle launches {launched}; audited rerun "
-            f"{time.perf_counter() - t0:.3f} s, {audit.n_ops} aten ops")
-        if audit.off_device:
-            raise AssertionError(f"{what}: operations off {DEVICE}: {sorted(audit.off_device)}")
+        _, launched = _counted(what, run, tally)
+        with _short_loops(), contextlib.redirect_stdout(None):
+            n_ops = _audited_rerun(what, run)
+        log(f"    {what}: rhor_mle launches {launched}; audited rerun {n_ops} aten ops")
 
 
-def phase11_entry_points(card, tmg, tmg4, rate_ms):
+def phase11_entry_points(card, tmg, tmg4):
     """The user entry points on the card; returns the rhor_mle launches of
     its counted runs."""
     import tempfile
@@ -3016,25 +2639,16 @@ def phase11_entry_points(card, tmg, tmg4, rate_ms):
     from quantpy_tpu_torch.utils import StageTimer
 
     log("[11] the user entry points on the card")
-    t0 = time.perf_counter()
     tally = [0]
     timer = StageTimer(device=DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         path = _cli_state_rows(card, tmg, tmp, tally, timer)
-        _cli_kron_rows(card, tmp, tally, timer)
-        _cli_process_rows(card, tmg4, tmp, tally, timer)
-        log(f"    (a)-(c): {time.perf_counter() - t0:.1f} s")
-        t1 = time.perf_counter()
+        _cli_kron_rows(tmp, tally, timer)
+        _cli_process_rows(tmg4, tmp, tally, timer)
         _cli_small_checks()
-        log(f"    (d): {time.perf_counter() - t1:.1f} s")
-        t1 = time.perf_counter()
-        _utility_rows(card, path, tally, timer, rate_ms)
-        log(f"    (e): {time.perf_counter() - t1:.1f} s")
-    t1 = time.perf_counter()
+        _utility_rows(path, tally, timer)
     _example_rows(card, tally)
-    log(f"    (f): {time.perf_counter() - t1:.1f} s")
-    log(f"    phase 11: {time.perf_counter() - t0:.1f} s; rhor_mle launches in its counted runs "
-        f"{tally[0]}, rhor_mle_flat none")
+    log(f"    phase 11: rhor_mle launches in its counted runs {tally[0]}, rhor_mle_flat none")
     return tally[0]
 
 
@@ -3047,7 +2661,7 @@ def _mesh(k):
     return make_mesh(devices=[DEVICE] * k)
 
 
-def _mesh_resample_row(card, tmg, est, rate_ms, tally):
+def _mesh_resample_row(card, tmg, est, tally):
     """Phase 12, part (a): phase 3's GHZ-4 bootstrap (RrhoR-60) over
     MESH_SHARDS logical shards on the card and over one shard."""
     from quantpy_tpu_torch.parallel import sharded_bootstrap_distances
@@ -3066,8 +2680,8 @@ def _mesh_resample_row(card, tmg, est, rate_ms, tally):
             meshes[size], key, bloch, povm, n_meas, n_points, method="mle-rhor",
             max_iter=MLE_ITERS)
 
-    d4, seconds, launched = _counted(f"the {k}-shard bootstrap", lambda: call(k), tally,
-                                     b1=k * B1_PER_F32_BATCH)
+    d4, launched = _counted(f"the {k}-shard bootstrap", lambda: call(k), tally,
+                            b1=k * B1_PER_F32_BATCH)
     if d4.device != meshes[k].devices[0] or d4.dtype != dtype:
         raise AssertionError(f"the sharded distances are {d4.dtype} on {d4.device}")
     median = _check_distances(d4.cpu().numpy(), n_points, f"the {k}-shard bootstrap")
@@ -3079,8 +2693,8 @@ def _mesh_resample_row(card, tmg, est, rate_ms, tally):
     ]
     diff = float((d4 - torch.cat(parts)).abs().max())
     log(f"    (a) GHZ-{N_QUBITS} bootstrap, {n_points} resamples over {k} logical shards on "
-        f"{card} ({per} per shard), RrhoR-{MLE_ITERS}, float32: first call {seconds:.3f} s, "
-        f"rhor_mle launches {launched}; median hs {median:.4e}; against the {k} single-device "
+        f"{card} ({per} per shard), RrhoR-{MLE_ITERS}, float32: rhor_mle launches {launched}; "
+        f"median hs {median:.4e}; against the {k} single-device "
         f"calls on the shards' generators max |diff| {diff:.3e}")
     if diff != 0.0:
         again = bootstrap_core.bootstrap_distances(
@@ -3093,13 +2707,8 @@ def _mesh_resample_row(card, tmg, est, rate_ms, tally):
                 f"the sharded bootstrap differs from its shards' single-device calls by {diff}")
         log("      the single-device program is not deterministic on the card; the shards "
             f"agree within {HS_TOL_F32:.0e}")
-    call(k)
-    call(1)  # warm
-    ms = {size: cuda_ms(lambda size=size: call(size), 3) for size in (k, 1)}
-    log(f"    {k} shards: best of 3 {ms[k]:.3f} ms = {n_points / ms[k] * 1e3:.1f} resamples/s; "
-        f"1 shard {ms[1]:.3f} ms = {n_points / ms[1] * 1e3:.1f} resamples/s; phase 4's single "
-        f"call {rate_ms:.3f} ms = {N_POINTS / rate_ms * 1e3:.1f} resamples/s, on {card}")
-    log_idle_share(f"the {k}-shard call", lambda: call(k), ms[k])
+    median = _check_distances(call(1).cpu().numpy(), n_points, "the 1-shard bootstrap")
+    log(f"    1 shard: median hs {median:.4e}")
 
 
 def _mesh_operator_checks():
@@ -3165,56 +2774,50 @@ def _mesh_operator_row(card, n):
     mesh = _mesh(MESH_SHARDS)
     povm1 = torch.as_tensor(_single_qubit_preset("proj-set"), dtype=f32, device=dev)
     truth = qtt.GHZ(n).bloch_tensor(dev, f32)
-    out = {"step": None}
+    peak = {}
 
-    def timed(name, fn):
-        out["step"] = name
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def peaked(name, fn):
         result = fn()
-        torch.cuda.synchronize()
-        out[name + "_s"] = time.perf_counter() - t0
-        out[name + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
         return result
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counts = timed("simulate", lambda: sharded_kron_simulate(mesh, 120 + n, povm1, truth,
-                                                             N_SHOTS))
-    lin = timed("lin", lambda: sharded_kron_estimate_lin(mesh, counts, povm1, n))
-    mle = timed("mle", lambda: sharded_kron_estimate_mle_rhor(
+    counts = peaked("simulate", lambda: sharded_kron_simulate(mesh, 120 + n, povm1, truth,
+                                                              N_SHOTS))
+    lin = peaked("lin", lambda: sharded_kron_estimate_lin(mesh, counts, povm1, n))
+    mle = peaked("mle", lambda: sharded_kron_estimate_mle_rhor(
         mesh, counts, povm1, n, init_bloch=lin, max_iter=MLE_ITERS))
     n_counts = math.prod(counts.shape)
     shard_shape = tuple(counts.shards[0].shape)
     hs = {k: float(bootstrap_core._distance_batch("hs", v, truth, n))
           for k, v in (("lin", lin), ("mle", mle))}
-    gathered = timed("gather", counts.gather)
+    gathered = counts.gather()
     del counts
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    single = timed("single", lambda: kron_core.kron_estimate_mle_rhor(
+    single = peaked("single", lambda: kron_core.kron_estimate_mle_rhor(
         gathered, povm1, n, init_bloch=lin, max_iter=MLE_ITERS))
     del gathered
     gap = float((single - mle).abs().max())
     log(f"    (b) GHZ-{n}, proj-set, {N_SHOTS} shots per POVM, float32, over {MESH_SHARDS} "
         f"logical shards on {card}: counts {n_counts * 4 / 1e9:.2f} GB born split in shards of "
         f"{shard_shape}")
-    log(f"      simulate {out['simulate_s']:.3f} s (peak {out['simulate_peak_gib']:.2f} GiB), lin "
-        f"{out['lin_s']:.3f} s (peak {out['lin_peak_gib']:.2f} GiB), MLE-{MLE_ITERS} "
-        f"{out['mle_s']:.3f} s (peak {out['mle_peak_gib']:.2f} GiB); hs to the truth lin "
-        f"{hs['lin']:.4e}, MLE {hs['mle']:.4e}")
-    log(f"      gather {out['gather_s']:.3f} s; the single-device kron_core MLE-{MLE_ITERS} on "
-        f"the gathered counts {out['single_s']:.3f} s, peak {out['single_peak_gib']:.2f} GiB; "
-        f"sharded vs single max |diff| {gap:.3e} (limit {MESH_MATCH_TOL:.0e})")
+    log(f"      peak after simulate {peak['simulate']:.2f} GiB, lin {peak['lin']:.2f} GiB, "
+        f"MLE-{MLE_ITERS} {peak['mle']:.2f} GiB; hs to the truth lin {hs['lin']:.4e}, MLE "
+        f"{hs['mle']:.4e}")
+    log(f"      the single-device kron_core MLE-{MLE_ITERS} on the gathered counts: peak "
+        f"{peak['single']:.2f} GiB; sharded vs single max |diff| {gap:.3e} (limit "
+        f"{MESH_MATCH_TOL:.0e})")
     if not 0 <= hs["mle"] < TRUTH_HS_LIMIT:
         raise AssertionError(f"{n}-qubit sharded MLE hs to the truth {hs['mle']}")
     if not gap <= MESH_MATCH_TOL:
         raise AssertionError(f"the sharded and single-device {n}-qubit MLE differ by {gap}")
 
 
-def _mesh_chain_rows(card, tmg, est):
+def _mesh_chain_rows(tmg, est):
     """Phase 12, part (c): the state chains on phase 3's experiment and the
     anchored kraus chains of a 1-qubit channel, with a mesh and without."""
     import warnings
@@ -3246,30 +2849,26 @@ def _mesh_chain_rows(card, tmg, est):
     for what, sharded, local, cl, rel_limit in rows:
         out = {}
         for name, build in (("mesh", lambda: sharded(mesh=mesh)), ("local", local)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", RuntimeWarning)  # short-chain R-hat
                 iv = build()
                 dist, _ = iv(cl)
-            torch.cuda.synchronize()
-            out[name] = (time.perf_counter() - t0, np.asarray(dist), iv)
-        (s_mesh, d_mesh, iv_mesh), (s_local, d_local, _) = out["mesh"], out["local"]
+            out[name] = (np.asarray(dist), iv)
+        (d_mesh, iv_mesh), (d_local, _) = out["mesh"], out["local"]
         if what.startswith("MHMC"):
             rel = float(np.max(np.abs(d_mesh - d_local) / d_local))
         else:
             m, m_v = float(np.median(d_mesh)), float(np.median(d_local))
             rel = abs(m - m_v) / max(m, m_v)
-        log(f"    (c) {what}, {iv_mesh.n_chains} chains over {MESH_SHARDS} shards: "
-            f"{s_mesh:.3f} s (local {s_local:.3f} s); acceptance {iv_mesh.acceptance_rate:.4f}; "
-            f"distances {np.round(d_mesh, 6).tolist()} vs local {np.round(d_local, 6).tolist()}; "
-            f"relative gap {rel:.4f} (limit {rel_limit})")
+        log(f"    (c) {what}, {iv_mesh.n_chains} chains over {MESH_SHARDS} shards: acceptance "
+            f"{iv_mesh.acceptance_rate:.4f}; distances {np.round(d_mesh, 6).tolist()} vs local "
+            f"{np.round(d_local, 6).tolist()}; relative gap {rel:.4f} (limit {rel_limit})")
         if not (np.all(np.isfinite(d_mesh)) and 0 < iv_mesh.acceptance_rate <= 1
                 and rel < rel_limit):
             raise AssertionError(f"{what}: the mesh chains disagree with the local run")
 
 
-def _mesh_process_and_coverage_rows(card, tmg4):
+def _mesh_process_and_coverage_rows(tmg4):
     """Phase 12, part (d): phase 8's process bootstrap and phase 9's GHZ-4
     coverage, over MESH_SHARDS shards and over one."""
     import numpy as np
@@ -3288,19 +2887,14 @@ def _mesh_process_and_coverage_rows(card, tmg4):
     n_points, iters = MESH_PROCESS
     medians = {}
     for size in (k, 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         d = sharded_process_bootstrap_distances(meshes[size], 13, *args, n_points=n_points,
                                                 cp="ns", cptp_iter=iters).cpu().numpy()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
         if d.shape != (n_points,) or not np.all(np.isfinite(d)):
             raise AssertionError("sharded process bootstrap distances are not finite")
         medians[size] = float(np.median(d))
         log(f"    (d) process bootstrap, {tmg4.channel.n_qubits} qubits x "
             f"{len(tmg4.tomographs)} inputs, {n_points} resamples over {size} shard(s), lifp + "
-            f"{iters} NS-Dykstra iterations: {seconds:.3f} s = {n_points / seconds:.2f} "
-            f"resamples/s, median hs {medians[size]:.4e} on {card}")
+            f"{iters} NS-Dykstra iterations: median hs {medians[size]:.4e}")
     spread = abs(medians[k] - medians[1]) / medians[1]
     if not (PROC_MEDIAN_BAND[0] <= medians[k] <= PROC_MEDIAN_BAND[1] and spread <= 0.10):
         raise AssertionError(f"the sharded process bootstrap medians are off: {medians}")
@@ -3308,13 +2902,7 @@ def _mesh_process_and_coverage_rows(card, tmg4):
     n, shots, trials = COVERAGE_QST
     levels = np.linspace(0.05, 0.99, 18)
     problem = verification.qst_problem(qtt.GHZ(n), shots)
-    cov = {}
-    for size in (k, 1):
-        t = time.perf_counter()
-        cov[size] = sharded_coverage(meshes[size], 98, problem, levels, trials)
-        seconds = time.perf_counter() - t
-        log(f"    (d) coverage of GHZ({n}), {shots} shots, {trials} trials over {size} shard(s): "
-            f"{seconds:.3f} s = {trials / seconds:.1f} trials/s on {card}")
+    cov = {size: sharded_coverage(meshes[size], 98, problem, levels, trials) for size in (k, 1)}
     gap = float(np.max(np.abs(cov[k] - cov[1])))
     # two independent estimates: 0.05, or five standard errors of their
     # difference where the trials are few
@@ -3326,14 +2914,15 @@ def _mesh_process_and_coverage_rows(card, tmg4):
                                           clip_b)
                for g in shard_generators(meshes[k], 7))
     equal = np.array_equal(sharded_coverage(meshes[k], 7, problem, levels, exact), hits / exact)
-    log(f"      coverage {np.round(cov[k], 4).tolist()}; {k} vs 1 shard max |diff| {gap:.4f} "
+    log(f"    (d) coverage of GHZ({n}), {shots} shots, {trials} trials: "
+        f"{np.round(cov[k], 4).tolist()}; {k} vs 1 shard max |diff| {gap:.4f} "
         f"(limit {gap_limit:.3f}); at {exact} trials the hits equal the per-shard "
         f"coverage_hits: {equal}")
     if not (np.all(cov[k] >= levels - 0.05) and gap <= gap_limit and equal):
         raise AssertionError("the sharded coverage is off")
 
 
-def _mesh_example_row(card, tally):
+def _mesh_example_row(tally):
     """Phase 12, part (e): quantpy_tpu_torch.examples.multichip on the card,
     counted, then rerun under the device audit."""
     import io
@@ -3343,29 +2932,22 @@ def _mesh_example_row(card, tally):
     shards = len(multichip._mesh_devices(torch.device(DEVICE))[0])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        _, seconds, launched = _counted("multichip.main", lambda: multichip.main(
-            ["--device", DEVICE]), tally, b1=shards * B1_PER_F32_BATCH)
+        _, launched = _counted("multichip.main", lambda: multichip.main(["--device", DEVICE]),
+                               tally, b1=shards * B1_PER_F32_BATCH)
     for line in buf.getvalue().splitlines():
         log(f"      | {line}")
-    audit = DeviceAudit()
-    with audit, contextlib.redirect_stdout(None):
-        multichip.main(["--device", DEVICE])
-        torch.cuda.synchronize()
-    log(f"    (e) multichip.main: {seconds:.3f} s, rhor_mle launches {launched} ({shards} "
-        f"shards); audited rerun {audit.n_ops} aten ops, off the card: "
-        f"{sorted(audit.off_device) or 'none'}")
-    if audit.off_device:
-        raise AssertionError(f"multichip: operations off {DEVICE}: {sorted(audit.off_device)}")
+    with contextlib.redirect_stdout(None):
+        n_ops = _audited_rerun("multichip", lambda: multichip.main(["--device", DEVICE]))
+    log(f"    (e) multichip.main: rhor_mle launches {launched} ({shards} shards); audited rerun "
+        f"{n_ops} aten ops, all on the card")
 
 
-def phase12_mesh(card, tmg, est, tmg4, rate_ms):
+def phase12_mesh(card, tmg, est, tmg4):
     """The mesh layer on the card; returns the rhor_mle launches of its
     counted runs."""
     log(f"[12] the mesh layer: {MESH_SHARDS} logical shards on one card")
-    t0 = time.perf_counter()
     tally = [0]
-    _mesh_resample_row(card, tmg, est, rate_ms, tally)
-    t1 = time.perf_counter()
+    _mesh_resample_row(card, tmg, est, tally)
     _mesh_operator_checks()
     for n in MESH_KRON:
         try:
@@ -3377,23 +2959,17 @@ def phase12_mesh(card, tmg, est, tmg4, rate_ms):
             log(f"    (b) {n} qubits do not fit on {card}: {str(e).splitlines()[0]}; the row "
                 f"runs at {MESH_KRON[-1]} qubits")
             torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    _mesh_chain_rows(card, tmg, est)
-    t3 = time.perf_counter()
-    _mesh_process_and_coverage_rows(card, tmg4)
-    t4 = time.perf_counter()
-    _mesh_example_row(card, tally)
-    t5 = time.perf_counter()
-    log(f"    phase 12: {t5 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
-        f"(d) {t4 - t3:.1f}, (e) {t5 - t4:.1f}); rhor_mle launches in its counted runs "
-        f"{tally[0]}, rhor_mle_flat none")
+    _mesh_chain_rows(tmg, est)
+    _mesh_process_and_coverage_rows(tmg4)
+    _mesh_example_row(tally)
+    log(f"    phase 12: rhor_mle launches in its counted runs {tally[0]}, rhor_mle_flat none")
     return tally[0]
 
 
 # -- phase 13: the port's benchmark and entry points ------------------------
 
 
-def _bench_row(card, rate_ms):
+def _bench_row():
     """Phase 13, part (a): quantpy_tpu_torch.bench.main in-process at full
     width, its JSON line checked; returns its (rhor_mle, rhor_mle_flat)
     launches."""
@@ -3405,12 +2981,8 @@ def _bench_row(card, rate_ms):
 
     out, err = io.StringIO(), io.StringIO()
     _reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         result = bench.main(["--device", DEVICE])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
     for line in err.getvalue().splitlines():
         log(f"      | {line}")
@@ -3424,14 +2996,6 @@ def _bench_row(card, rate_ms):
         raise AssertionError(f"the bench's line is malformed; extras missing {missing}")
     if extras["skipped"]:
         raise AssertionError(f"the bench skipped sections: {extras['skipped']}")
-
-    phase4 = N_POINTS / rate_ms * 1e3
-    rel = abs(line["value"] - phase4) / phase4
-    log(f"    (a) bench.main: {seconds:.1f} s; value {line['value']} resamples/s against phase "
-        f"4's {phase4:.1f} (off by {rel:.3f}, limit {BENCH_RATE_REL}); times "
-        f"{extras['times_ms']['value']} ms, spread {extras['spread']['value']} on {card}")
-    if not rel <= BENCH_RATE_REL:
-        raise AssertionError(f"the bench's value is {rel:.3f} off phase 4's rate")
 
     design = (bench.N_QUBITS,) + qtt.generate_measurement_matrix("proj-set",
                                                                  bench.N_QUBITS).shape[:2]
@@ -3465,7 +3029,7 @@ def _bench_row(card, rate_ms):
     return launched
 
 
-def _entry_row(card):
+def _entry_row():
     """Phase 13, part (b): entry()'s flagship bootstrap round on the card;
     returns its rhor_mle launches."""
     import numpy as np
@@ -3475,18 +3039,14 @@ def _entry_row(card):
 
     fn, args = entry.entry(device=DEVICE)
     _reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     d = fn(*args)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
     if d.device.type != DEVICE:
         raise AssertionError(f"entry()'s distances are on {d.device}")
     median = _check_distances(d.cpu().numpy(), ENTRY_POINTS, "entry()")
-    log(f"    (b) entry(): fn(*args) {seconds:.3f} s, {ENTRY_POINTS} distances, median "
-        f"{median:.4e}, finite {bool(np.isfinite(d.cpu().numpy()).all())}; rhor_mle / "
-        f"rhor_mle_flat launches {launched} on {card}")
+    log(f"    (b) entry(): fn(*args) {ENTRY_POINTS} distances, median {median:.4e}, finite "
+        f"{bool(np.isfinite(d.cpu().numpy()).all())}; rhor_mle / rhor_mle_flat launches "
+        f"{launched}")
     if launched != (B1_PER_F32_BATCH, 0):
         raise AssertionError(f"entry()'s round launched {launched}")
     return launched[0]
@@ -3503,20 +3063,18 @@ def _dryrun_row(card):
     buf = io.StringIO()
     audit = DeviceAudit()
     _reset_launches()
-    t0 = time.perf_counter()
     with audit, contextlib.redirect_stdout(buf):
         entry.dryrun_multichip(MESH_SHARDS, devices=[torch.device(DEVICE, 0)] * MESH_SHARDS)
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launched = (kernels.rhor_mle.launches, kernels.rhor_mle_flat.launches)
     for line in buf.getvalue().splitlines():
         log(f"      | {line}")
     # the state bootstrap's shards and its single-device twin, one f32
     # 'mle-rhor' batch each; no other stage reaches a kernel
     want = (B1_PER_F32_BATCH * (MESH_SHARDS + 1), 0)
-    log(f"    (c) dryrun_multichip({MESH_SHARDS}) on {card}: {seconds:.1f} s under the audit "
-        f"({audit.n_ops} aten ops, off the card: {sorted(audit.off_device) or 'none'}); "
-        f"rhor_mle / rhor_mle_flat launches {launched} (expected {want})")
+    log(f"    (c) dryrun_multichip({MESH_SHARDS}) on {card} under the audit ({audit.n_ops} aten "
+        f"ops, off the card: {sorted(audit.off_device) or 'none'}); rhor_mle / rhor_mle_flat "
+        f"launches {launched} (expected {want})")
     if audit.off_device:
         raise AssertionError(f"the dry run ran operations off the card: {sorted(audit.off_device)}")
     if launched != want:
@@ -3524,27 +3082,22 @@ def _dryrun_row(card):
     return launched[0]
 
 
-def phase13_bench_and_entry(card, rate_ms):
+def phase13_bench_and_entry(card):
     """The port's benchmark and entry points on the card; returns
     the (rhor_mle, rhor_mle_flat) launches of its counted runs."""
     log("[13] the port's benchmark (quantpy_tpu_torch.bench) and entry points "
         "(quantpy_tpu_torch.entry)")
-    t0 = time.perf_counter()
-    b1, b2 = _bench_row(card, rate_ms)
-    t1 = time.perf_counter()
-    b1 += _entry_row(card)
-    t2 = time.perf_counter()
+    b1, b2 = _bench_row()
+    b1 += _entry_row()
     b1 += _dryrun_row(card)
-    t3 = time.perf_counter()
-    log(f"    phase 13: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}); "
-        f"launches in its counted runs: rhor_mle {b1}, rhor_mle_flat {b2}")
+    log(f"    phase 13: launches in its counted runs: rhor_mle {b1}, rhor_mle_flat {b2}")
     return b1, b2
 
 
 # -- phase 14: the rest of the surface ------------------------------------------
 
 
-def _chain_flagship_row(card, tmg, est):
+def _chain_flagship_row(tmg, est):
     """Phase 14, part (a): the flagship's counts drawn by the chain sampler
     and by the binary split from one set of probabilities, each estimated
     through B1 (counted); B1 against its plain version on the chain's
@@ -3564,13 +3117,9 @@ def _chain_flagship_row(card, tmg, est):
     gen.manual_seed(CHAIN_SEED)
     methods = ("chain", "binary")
     counts = {m: sample_multinomial(gen, n_meas, probs, method=m) for m in methods}
-    draw_ms = {m: cuda_ms(lambda m=m: sample_multinomial(gen, n_meas, probs, method=m), 3)
-               for m in methods}
     log(f"    (a) {N_POINTS} x {tuple(probs.shape[1:])} counts from phase 3's GHZ-{n} "
-        f"estimate, {N_SHOTS} shots per POVM, {dtype}: the chain draw {draw_ms['chain']:.3f} "
-        f"ms ({probs.shape[-1] - 1} binomial passes), the binary split "
-        f"{draw_ms['binary']:.3f} ms ({(probs.shape[-1] - 1).bit_length()} passes), best of 3, "
-        f"ratio {draw_ms['chain'] / draw_ms['binary']:.3f} on {card}")
+        f"estimate, {N_SHOTS} shots per POVM, {dtype}: the chain draw ({probs.shape[-1] - 1} "
+        f"binomial passes) and the binary split ({(probs.shape[-1] - 1).bit_length()} passes)")
     for m, c in counts.items():
         if c.device.type != DEVICE or c.shape != probs.shape:
             raise AssertionError(f"the {m} draw is {tuple(c.shape)} on {c.device}")
@@ -3627,7 +3176,7 @@ def _kron_sums(counts, n_shots):
 def _chunked_kron_row(card):
     """Phase 14, part (b): GHZ-n with proj-set, N_SHOTS shots per POVM,
     drawn fused (`kron_simulate`) and in blocks (`kron_simulate_chunked`):
-    times, peaks, exact row totals, per-outcome sums within 5 standard
+    peaks, exact row totals, per-outcome sums within 5 standard
     errors; then the one-block draw equal to the fused one bit for bit."""
     import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch.measurements import _single_qubit_preset
@@ -3646,30 +3195,27 @@ def _chunked_kron_row(card):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         counts = draw(gen, povm1, truth, N_SHOTS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         if counts.device.type != DEVICE or counts.shape != (3**n, 2**n):
             raise AssertionError(f"{name} returned {tuple(counts.shape)} on {counts.device}")
         sums, exact = _kron_sums(counts, N_SHOTS)
-        rows[name] = (seconds, peak, sums, exact)
+        rows[name] = (peak, sums, exact)
         del counts
     probs = kron_core.kron_probs(povm1.double(), n, truth.double())
     probs = probs / probs.sum(-1, keepdim=True)
     var = (N_SHOTS * probs * (1 - probs)).sum(-2)
     expected = (N_SHOTS * probs).sum(-2)
     del probs
-    (s_f, p_f, sum_f, ok_f), (s_c, p_c, sum_c, ok_c) = rows.values()
+    (p_f, sum_f, ok_f), (p_c, sum_c, ok_c) = rows.values()
     z_pair = float(((sum_f - sum_c).abs() / (2 * var).sqrt().clamp(min=1e-300)).max())
     z_truth = max(float(((s - expected).abs() / var.sqrt().clamp(min=1e-300)).max())
                   for s in (sum_f, sum_c))
     m0 = 3 ** group_sizes(n)[0]
     log(f"    (b) GHZ-{n}, proj-set, {N_SHOTS} shots per POVM, float32 on {card}: "
         f"{3**n} x {2**n} counts ({3**n * 2**n * 4 / 1e9:.2f} GB)")
-    log(f"      kron_simulate {s_f:.3f} s, peak {p_f:.2f} GiB; kron_simulate_chunked ({m0} "
-        f"blocks) {s_c:.3f} s, peak {p_c:.2f} GiB; row totals exact: {ok_f}, {ok_c}; "
+    log(f"      kron_simulate peak {p_f:.2f} GiB; kron_simulate_chunked ({m0} blocks) peak "
+        f"{p_c:.2f} GiB; row totals exact: {ok_f}, {ok_c}; "
         f"per-outcome sums, largest |fused - chunked| {z_pair:.2f} SE, largest |draw - n p| "
         f"{z_truth:.2f} SE (limit 5)")
     if not (ok_f and ok_c):
@@ -3713,26 +3259,22 @@ def _state_chunk_row(card):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         moments = kron_analytic.channel_l2_moments_kron(
             tmg._states1_t, tmg._povm1, n, freq3, n_trials, state_chunk=chunk, probes=probes,
             device=dev)
-        torch.cuda.synchronize()
-        out[chunk] = (moments, time.perf_counter() - t0,
-                      torch.cuda.max_memory_allocated() / 2**20)
-    (m_a, s_a, p_a), (m_b, s_b, p_b) = out.values()
+        out[chunk] = (moments, torch.cuda.max_memory_allocated() / 2**20)
+    (m_a, p_a), (m_b, p_b) = out.values()
     rel = max(abs(a - b) / abs(b) for a, b in zip(m_a, m_b))
     log(f"    (c) channel_l2_moments_kron on depolarizing(0.1, {n}), {len(freq3)} inputs, "
-        f"{shots} shots, {n_probes} probes, float64 on {card}: state_chunk {chunks[0]} "
-        f"{s_a:.3f} s, peak {p_a:.1f} MiB; state_chunk {chunks[1]} {s_b:.3f} s, peak "
-        f"{p_b:.1f} MiB; (mean, variance) ({m_b[0]:.9e}, {m_b[1]:.9e}), largest relative "
-        f"difference {rel:.3e} "
-        f"(limit {SURFACE_CHANNEL_REL:.0e})")
+        f"{shots} shots, {n_probes} probes, float64 on {card}: state_chunk {chunks[0]} peak "
+        f"{p_a:.1f} MiB, state_chunk {chunks[1]} peak {p_b:.1f} MiB; (mean, variance) "
+        f"({m_b[0]:.9e}, {m_b[1]:.9e}), largest relative difference {rel:.3e} (limit "
+        f"{SURFACE_CHANNEL_REL:.0e})")
     if not (all(math.isfinite(v) for v in m_a + m_b) and rel <= SURFACE_CHANNEL_REL):
         raise AssertionError(f"the state chunkings disagree: {m_a} against {m_b}")
 
 
-def _pgdb_host_row(card):
+def _pgdb_host_row():
     """Phase 14, part (d): estimate_pgdb_factored_host from a lifp warm
     start, float64: against estimate_pgdb_factored, and the card against
     the CPU."""
@@ -3751,17 +3293,14 @@ def _pgdb_host_row(card):
         init = process_core.estimate_lifp_factored(*args, cptp_iter=cptp_iter)
         return fn(*args, init_bloch=init, **kwargs)
 
-    t0 = time.perf_counter()
     host = run(DEVICE, process_core.estimate_pgdb_factored_host)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     fused = run(DEVICE, process_core.estimate_pgdb_factored)
     on_cpu = run("cpu", process_core.estimate_pgdb_factored_host)
     gap = float((host - fused).abs().max())
     card_cpu = float((host.cpu() - on_cpu).abs().max())
     log(f"    (d) estimate_pgdb_factored_host, depolarizing(0.1, {n}), {shots} shots, lifp "
         f"warm start, {n_iter} iterations, {cptp_iter} Dykstra iterations, float64: "
-        f"{seconds:.2f} s on {card}; max|delta| against estimate_pgdb_factored {gap:.3e}, "
+        f"max|delta| against estimate_pgdb_factored {gap:.3e}, "
         f"card against the CPU {card_cpu:.3e} (limit {SURFACE_PGDB_TOL:.0e})")
     if host.device.type != DEVICE or host.dtype != f64:
         raise AssertionError(f"the host pgdb returned {host.dtype} on {host.device}")
@@ -3820,20 +3359,12 @@ def phase14_surface(card, tmg, est):
     of its counted runs."""
     log("[14] the rest of the surface: the chain sampler, the chunked kron draw, "
         "state_chunk, the host pgdb, ops/df32 and ops/cplx")
-    t0 = time.perf_counter()
-    launches = _chain_flagship_row(card, tmg, est)
-    t1 = time.perf_counter()
+    launches = _chain_flagship_row(tmg, est)
     _chunked_kron_row(card)
-    t2 = time.perf_counter()
     _state_chunk_row(card)
-    t3 = time.perf_counter()
-    _pgdb_host_row(card)
-    t4 = time.perf_counter()
+    _pgdb_host_row()
     _df32_and_cplx_row(card)
-    t5 = time.perf_counter()
-    log(f"    phase 14: {t5 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
-        f"(d) {t4 - t3:.1f}, (e) {t5 - t4:.1f}); rhor_mle launches in its counted runs "
-        f"{launches}, rhor_mle_flat none")
+    log(f"    phase 14: rhor_mle launches in its counted runs {launches}, rhor_mle_flat none")
     return launches
 
 
@@ -3846,17 +3377,16 @@ def main() -> int:
     measured[PSD_KERNEL] = phase2_psd_kernel()
     measured[CLIP_KERNEL] = phase2_clip_kernel()
     tmg, est, launches = phase3_main_path(card)
-    rate_ms = phase4_rate(card, tmg, est)
-    flat_launches = phase5_flat_path(card, tmg, est)
-    phase6_cholesky_mle(card)
+    flat_launches = phase5_flat_path(tmg, est)
+    phase6_cholesky_mle()
     clip_launches = phase7_kron(card)
     process_launches, process_tmg, psd_launches = phase8_process(card)
     launches += process_launches
     phase9_intervals(card)
     phase10_mcmc(card, tmg, est, process_tmg)
-    launches += phase11_entry_points(card, tmg, process_tmg, rate_ms)
-    launches += phase12_mesh(card, tmg, est, process_tmg, rate_ms)
-    bench_b1, bench_b2 = phase13_bench_and_entry(card, rate_ms)
+    launches += phase11_entry_points(card, tmg, process_tmg)
+    launches += phase12_mesh(card, tmg, est, process_tmg)
+    bench_b1, bench_b2 = phase13_bench_and_entry(card)
     launches += bench_b1
     flat_launches += bench_b2
     launches += phase14_surface(card, tmg, est)

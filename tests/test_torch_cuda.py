@@ -784,7 +784,7 @@ def _clip_states(device, d, batch, seed):
     first up to 4), the rest random."""
     import numpy as np
 
-    from . import reference_kron_state as ref
+    from benchmark.reference import kron_state as ref
 
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(batch, d, d)) + 1j * rng.normal(size=(batch, d, d))
@@ -839,7 +839,7 @@ def test_kron_lin_at_eight_qubits_clips_in_the_kernel(cuda):
     from quantpy_tpu_torch.tomography import kron_core
     from quantpy_tpu_torch.utils import profiling
 
-    from . import reference_kron_state as ref
+    from benchmark.reference import kron_state as ref
 
     n, batch = 8, 3
     probs = ref.probabilities(torch.as_tensor(ref.bloch_of_ket(ref.w_ket(n))), n).numpy()

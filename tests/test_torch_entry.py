@@ -30,16 +30,6 @@ from quantpy_tpu_torch.parallel import make_mesh  # noqa: E402
 from ._torch_cpu import on_cpu  # noqa: E402, F401
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in tests/test_torch_parallel.py: the shards'
-    many small operations slow down under the test workers' contention."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def test_flagship_design_matches_the_jax_one():
     jtmg, jest = jentry._flagship_design(2, 1000)
     tmg, est = entry._flagship_design(2, 1000)

@@ -19,25 +19,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from benchmark.reference import kron_state as ref  # noqa: E402
 from quantpy_tpu_torch.ops import kernels  # noqa: E402
 from quantpy_tpu_torch.ops.paulis import bloch_to_matrix, matrix_to_bloch  # noqa: E402
 from quantpy_tpu_torch.tomography import state_core  # noqa: E402
 
-from . import reference_kron_state as ref  # noqa: E402
 from ._torch_cpu import on_cpu  # noqa: E402, F401
 
 TOL = {torch.complex64: 5e-5, torch.complex128: 1e-10}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The plain version runs thousands of small operations; on one thread
-    they take a quarter of the CPU time they take on many, and leave the
-    other test workers their cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def eigh_clip(a):

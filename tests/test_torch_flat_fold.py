@@ -22,7 +22,7 @@ from quantpy_tpu.ops.paulis import _pauli_transfer_np as jax_ptm  # noqa: E402
 
 from quantpy_tpu_torch.ops import kernels  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import on_cpu, on_cpu_module  # noqa: E402, F401
 from .test_torch_kernels_flat import _problem, _t  # noqa: E402
 
 F32 = torch.float32

@@ -22,7 +22,7 @@ from quantpy_tpu.tomography import state_core as jcore  # noqa: E402
 from quantpy_tpu_torch.ops import kernels  # noqa: E402
 from quantpy_tpu_torch.tomography import bootstrap_core  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import on_cpu, on_cpu_module  # noqa: E402, F401
 
 F32 = torch.float32
 F64 = torch.float64

@@ -36,7 +36,7 @@ from quantpy_tpu_torch.parallel import mesh as pm  # noqa: E402
 from quantpy_tpu_torch.tomography import bootstrap_core, kron_core, state_core  # noqa: E402
 from quantpy_tpu_torch.tomography.polytopes import verification  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import on_cpu, on_cpu_module  # noqa: E402, F401
 
 F64 = torch.float64
 N6 = 6
@@ -48,16 +48,6 @@ def float64():
     config.set_dtype(F64)
     yield
     config.set_dtype(prev)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the shards' many small operations slowed up to
-    200-fold under the test workers' contention for the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

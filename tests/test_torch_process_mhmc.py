@@ -24,7 +24,7 @@ import quantpy_tpu_torch as qtt  # noqa: E402
 from quantpy_tpu_torch.tomography import process_core as core  # noqa: E402
 from quantpy_tpu_torch.tomography import state_core  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import on_cpu, on_cpu_module  # noqa: E402, F401
 
 ATOL = 1e-8
 F64 = torch.float64

@@ -23,17 +23,6 @@ from ._torch_cpu import on_cpu  # noqa: E402, F401
 TOL = {torch.complex64: 5e-5, torch.complex128: 1e-10}
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The plain version runs thousands of small operations; on one thread
-    they take a quarter of the CPU time they take on many, and leave the
-    other test workers their cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 DIMS = (4, 16, 64)  # the Choi matrices of 1, 2 and 3 qubits
 KINDS = ("random", "negative_and_zero", "depolarizing", "rounding")
 

@@ -18,7 +18,7 @@ from quantpy_tpu_torch.parallel import mesh  # noqa: E402
 from quantpy_tpu_torch.tomography import bootstrap_core, process_core  # noqa: E402
 from quantpy_tpu_torch.utils import StageTimer, profiling  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import on_cpu, on_cpu_module  # noqa: E402, F401
 
 LIN_SPANS = {"qt.interval", "qt.interval.inputs", "qt.sample", "qt.lin.solve", "qt.lin.clip",
              "qt.interval.readback", "qt.interval.sort"}

@@ -19,10 +19,29 @@ import quantpy_tpu as qt  # noqa: E402
 from quantpy_tpu import utils as jutils  # noqa: E402
 
 import quantpy_tpu_torch as qtt  # noqa: E402
-from quantpy_tpu_torch import utils  # noqa: E402
+from quantpy_tpu_torch import config, utils  # noqa: E402
 from quantpy_tpu_torch.utils import ChunkedAccumulator, StageTimer, resumable_bootstrap  # noqa: E402
 
-from ._torch_cpu import on_cpu  # noqa: E402, F401
+from ._torch_cpu import cpu_one_thread, on_cpu  # noqa: E402, F401
+
+
+def test_cpu_files_run_each_test_on_the_cpu_and_one_thread():
+    """`on_cpu`, the autouse fixture of the port's CPU test files
+    (tests/_torch_cpu.py), holds this test on the CPU and one torch thread;
+    its `cpu_one_thread` restores whatever it found."""
+    assert config.get_device() == torch.device("cpu")
+    assert torch.get_num_threads() == 1
+    config.set_device("cuda")  # only recorded: no CUDA call is made
+    torch.set_num_threads(3)
+    try:
+        with cpu_one_thread():
+            assert config.get_device() == torch.device("cpu")
+            assert torch.get_num_threads() == 1
+        assert config.get_device() == torch.device("cuda")
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(1)
+        config.set_device("cpu")
 
 
 def test_stage_timer(capsys):

@@ -20,8 +20,7 @@ expected: the CPU has no kernel), and phase 12's mesh to 4 CPU shards,
 1,024 resamples in (a), 6 qubits in (b) and short chains, process
 bootstraps and coverage runs in (c)-(d), and phase 13's benchmark to a
 2-qubit headline of 64 resamples at 10 iterations with 2-qubit rows (the
-FP32 peak a stand-in of 1 TFLOP/s and its rate not held to phase 4's),
-`entry()` at its full size and the dry run on 4 CPU shards, and phase 14's
+FP32 peak a stand-in of 1 TFLOP/s), `entry()` at its full size and the dry run on 4 CPU shards, and phase 14's
 chain-sampled flagship to phase 3's resample count at 2 qubits, its kron
 draws to 4 qubits (the one-block equality to 3), its channel moments to 2
 qubits at state chunks of 3 and 16 with 16 probes, its host pgdb to 1
@@ -30,16 +29,16 @@ clip row to 3 qubits and 6 resamples in chunks of 2, its float32 states
 clipped by a counting stand-in of the clip kernel; phase 2's psd_clip
 rows (`--phases c`) to 2 and 3 matrices of 72 x 72 and 128 x 128, the
 kernel's place taken by its plain version (which the CPU runs for it), so
-that its comparisons read 0 there. What it prints are
-CPU readings: they check control flow, shapes and numerics, never the
-card's times. It also prints how many L-BFGS evaluations (value and
-gradient of the whole batch) phase 6 ran.
+that its comparisons read 0 there. Phases 0 to 5 need the card's kernels
+and are not rehearsed. What it prints are CPU readings: they check
+control flow, shapes and numerics, never the card's times. It also
+prints how many L-BFGS evaluations (value and gradient of the whole
+batch) phase 6 ran.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import sys
 import time
 from pathlib import Path
@@ -74,7 +73,7 @@ def _rehearsed_clip_row(row, n_qubits: int):
     from quantpy_tpu_torch.tomography import kron_core, state_core
     from quantpy_tpu_torch.utils import profiling
 
-    def rehearsed(card, povm1, gen):
+    def rehearsed(povm1, gen):
         saved = (kron_core.CHUNK_COUNT_ENTRIES, state_core._clips_in_the_kernel, kernels.psd_clip)
 
         def clip(a):
@@ -87,7 +86,7 @@ def _rehearsed_clip_row(row, n_qubits: int):
         state_core._clips_in_the_kernel = lambda rho: rho.dtype == torch.complex64
         kernels.psd_clip = clip
         try:
-            return row(card, povm1, gen)
+            return row(povm1, gen)
         finally:
             kron_core.CHUNK_COUNT_ENTRIES, state_core._clips_in_the_kernel, kernels.psd_clip = saved
 
@@ -119,7 +118,6 @@ def main() -> int:
     chip_smoke.ANALYTIC_STATE = (2, 3_000, 20)
     chip_smoke.ANALYTIC_KRON = (3, 2_000, 10)
     chip_smoke.ANALYTIC_CHANNEL = (2, 2_000, 10)
-    chip_smoke._lp_device_split = lambda *_: None
     chip_smoke.COVERAGE_QST = (2, 500, 300)
     chip_smoke.COVERAGE_QPT = (1, 500, 200)
     chip_smoke.MCMC_STATE = (80, 50, 2)
@@ -129,7 +127,6 @@ def main() -> int:
     chip_smoke.MCMC_FOUR = (20, 10, 10)
     chip_smoke.MCMC_PROJECTED_STEPS = 4
     chip_smoke.MCMC_HOLDER = (20, 20)
-    chip_smoke.MCMC_IDLE_STEPS = 3
     chip_smoke.CLI_STATE = (64, 20)
     chip_smoke.CLI_KRON = (3, 2_000, 8)
     chip_smoke.CLI_PROCESS_POINTS = 8
@@ -148,7 +145,6 @@ def main() -> int:
                                         curv_probes=4)
     chip_smoke.MESH_PROCESS = (32, 50)
     chip_smoke.MESH_COVERAGE_EXACT = 200
-    chip_smoke.BENCH_RATE_REL = math.inf  # a CPU rate at 2 qubits against none
     chip_smoke.SURFACE_KRON = (4, 3)
     chip_smoke.SURFACE_CHANNEL = (2, 2_000, (3, 16), 16)
     chip_smoke.SURFACE_PGDB = (1, 2_000, 5, 100)
@@ -159,14 +155,12 @@ def main() -> int:
     bench.STATE_10Q = (2, 4)
     bench.PROCESS_BOOT = (2, 2_000, 8)
     bench.fp32_peak_tflops = lambda device: 1.0  # the CPU has no card to read
-    chip_smoke.device_busy_ms = lambda fn: (fn(), 0.0)[1]
     qtt.MHMCProcessInterval.PROJECTED_TARGET_QUBITS = 2  # the projected row at 2 qubits
     torch.cuda.Event = _HostEvent
     torch.cuda.synchronize = lambda *_: None
     torch.cuda.reset_peak_memory_stats = lambda *_: None
     torch.cuda.max_memory_allocated = lambda *_: 0
     torch.cuda.empty_cache = lambda *_: None
-    chip_smoke.log_idle_share = lambda *_: None
 
     evaluations = 0
     value_and_grad = lbfgs._value_and_grad
@@ -194,56 +188,38 @@ def main() -> int:
         print(f"phase 2 (psd_clip): {time.perf_counter() - t0:.1f} s on the CPU")
     for two_digits, letter in (("14", "V"), ("13", "W"), ("12", "Z"), ("11", "Y"), ("10", "X")):
         phases = phases.replace(two_digits, letter)
+
+    def rehearse(letter, phase, *args):
+        if letter in phases:
+            t0 = time.perf_counter()
+            phase(*args)
+            number = phase.__name__.split("_")[0].removeprefix("phase")
+            print(f"phase {number}: {time.perf_counter() - t0:.1f} s on the CPU")
+
+    rehearse("6", chip_smoke.phase6_cholesky_mle)
     if "6" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase6_cholesky_mle(card)
-        print(f"phase 6: {time.perf_counter() - t0:.1f} s on the CPU; "
-              f"L-BFGS evaluations {evaluations}")
-    if "7" in phases:
-        chip_smoke.KRON_CLIP_ROW = (3, 6)
-        chip_smoke._kron_clip_row = _rehearsed_clip_row(chip_smoke._kron_clip_row, 3)
-        t0 = time.perf_counter()
-        chip_smoke.phase7_kron(card)
-        print(f"phase 7: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "8" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase8_process(card)
-        print(f"phase 8: {time.perf_counter() - t0:.1f} s on the CPU")
+        print(f"phase 6: L-BFGS evaluations {evaluations}")
+    chip_smoke.KRON_CLIP_ROW = (3, 6)
+    chip_smoke._kron_clip_row = _rehearsed_clip_row(chip_smoke._kron_clip_row, 3)
+    rehearse("7", chip_smoke.phase7_kron, card)
+    rehearse("8", chip_smoke.phase8_process, card)
     # from phase 9 to 12, 2 qubits dense and 3 in kron mode (phase 6's and
     # phase 13's GHZ-4 stay dense)
     dense_max = qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS
     qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = 1000
-    if "9" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase9_intervals(card)
-        print(f"phase 9: {time.perf_counter() - t0:.1f} s on the CPU")
+    rehearse("9", chip_smoke.phase9_intervals, card)
     tmg = qtt.StateTomograph(qtt.GHZ(2), key=2026)
     tmg.experiment(chip_smoke.N_SHOTS, "proj-set")
     est = tmg.point_estimate("mle-rhor")
     tmg4 = qtt.ProcessTomograph(qtt.depolarizing(0.1, 2), key=7)
     tmg4.experiment(2_000)
     tmg4.point_estimate("lifp")
-    if "X" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase10_mcmc(card, tmg, est, tmg4)
-        print(f"phase 10: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "Y" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase11_entry_points(card, tmg, tmg4, float("nan"))
-        print(f"phase 11: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "Z" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase12_mesh(card, tmg, est, tmg4, float("nan"))
-        print(f"phase 12: {time.perf_counter() - t0:.1f} s on the CPU")
+    rehearse("X", chip_smoke.phase10_mcmc, card, tmg, est, tmg4)
+    rehearse("Y", chip_smoke.phase11_entry_points, card, tmg, tmg4)
+    rehearse("Z", chip_smoke.phase12_mesh, card, tmg, est, tmg4)
     qtt.StateTomograph.DENSE_POVM_MAX_ELEMENTS = dense_max
-    if "W" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase13_bench_and_entry(card, 1.0)
-        print(f"phase 13: {time.perf_counter() - t0:.1f} s on the CPU")
-    if "V" in phases:
-        t0 = time.perf_counter()
-        chip_smoke.phase14_surface(card, tmg, est)
-        print(f"phase 14: {time.perf_counter() - t0:.1f} s on the CPU")
+    rehearse("W", chip_smoke.phase13_bench_and_entry, card)
+    rehearse("V", chip_smoke.phase14_surface, card, tmg, est)
     return 0
 
 

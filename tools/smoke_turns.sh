@@ -1,9 +1,10 @@
 #!/usr/bin/env bash
 # Run chip_smoke.py of two checkouts in turns on one CUDA card (old, new,
 # new, old), so that two versions of the kernels are timed on the same card
-# in one run. Each turn's output goes to OUT/turn<i>-<old|new>.log (OUT is
-# scratch/turns by default); the timing and build lines of every turn are
-# printed at the end. Exits non-zero if any turn failed.
+# in one run (phase 2, the script's one timed phase). Each turn's output goes
+# to OUT/turn<i>-<old|new>.log (OUT is scratch/turns by default); phase 2's
+# timing lines and the build lines of every turn are printed at the end.
+# Exits non-zero if any turn failed.
 #
 # From the repository root, with the old tree the parent commit and the new
 # one the working tree as git would commit it (scratch/ is listed in
@@ -31,6 +32,6 @@ for side in old new new old; do
 done
 for log in "$out"/turn*.log; do
   echo "== $log"
-  grep -E "NVIDIA|ptxas: .*(registers|spill)|flagship|bootstrap_distances|stages|\"ok\"" "$log"
+  grep -E "NVIDIA|ptxas: .*(registers|spill)|flagship|complex64: kernel|\"ok\"" "$log"
 done
 exit $status

@@ -1404,33 +1404,32 @@ def _process_flagship():
 
 def _process_eigh_row(card):
     """Phase 8, part 5: a bootstrap on the 'eigh' engine (the default below
-    4 qubits), one psd_project launch per Dykstra iteration; peak memory
-    and the launches, held to the steps. Returns the launches."""
+    4 qubits), one psd_project launch per Dykstra iteration, whether the
+    iteration ran eagerly or as a replay of the step's CUDA graph; peak
+    memory and the launches, held to the steps (`iters` on the program's
+    `qt.dykstra` spans). Returns the launches."""
     import numpy as np
 
     import quantpy_tpu_torch as qtt
     from quantpy_tpu_torch.ops import kernels
-    from quantpy_tpu_torch.tomography import process_core
+    from quantpy_tpu_torch.utils import profiling
 
     n, shots, n_points = PROC_EIGH_ROW
     tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, n), key=5)
     tmg.experiment(shots)
     tmg.point_estimate("lifp")
     interval = qtt.BootstrapProcessInterval(tmg, n_points=n_points, key=6)
-    steps = []
-    step = process_core._dykstra_step
-    process_core._dykstra_step = lambda *args: steps.append(1) or step(*args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.psd_project.launches = 0
-    try:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         interval.setup()
-    finally:
-        process_core._dykstra_step = step
     launches = kernels.psd_project.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    if not (steps and launches == PSD_LAUNCHES_PER_STEP * len(steps)):
-        raise AssertionError(f"the {n}-qubit 'eigh' bootstrap ran {len(steps)} Dykstra steps "
+    dykstra = [s.counts for s in profiling.recorded() if s.name == "qt.dykstra"]
+    steps, replays = (sum(c.get(k, 0) for c in dykstra) for k in ("iters", "graph"))
+    if not (steps and launches == PSD_LAUNCHES_PER_STEP * steps):
+        raise AssertionError(f"the {n}-qubit 'eigh' bootstrap ran {steps} Dykstra steps "
                              f"and {launches} psd_project launches, not "
                              f"{PSD_LAUNCHES_PER_STEP} per step")
     if not np.all(np.isfinite(interval.distances)):
@@ -1438,7 +1437,8 @@ def _process_eigh_row(card):
     log(f"    {n}-qubit process bootstrap on the 'eigh' engine ({n_points} resamples, {shots} "
         f"shots, up to 2000 Dykstra iterations of a batched {4**n}-dim eigh): median hs "
         f"{float(np.median(interval.distances)):.4e}, peak memory {peak_mib:.1f} MiB on {card}; "
-        f"{len(steps)} Dykstra steps, psd_project launches {launches}")
+        f"{steps} Dykstra steps ({replays} replayed from a CUDA graph), psd_project launches "
+        f"{launches}")
     return launches
 
 

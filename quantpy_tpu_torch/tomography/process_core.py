@@ -23,8 +23,11 @@ Shape conventions:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -158,7 +161,9 @@ def tp_project_bloch(choi_bloch):
     d1 = 4**n
     c = choi_bloch.reshape(tuple(choi_bloch.shape[:-1]) + (d1, d1)).clone()
     c[..., :, 0] = 0.0
-    c[..., 0, 0] = 1.0 / (2**n)
+    # fill_, not a setitem: on one unbatched vector that would copy a host scalar,
+    # which a CUDA graph cannot capture
+    c[..., 0, 0].fill_(1.0 / (2**n))
     return c.reshape(choi_bloch.shape)
 
 
@@ -328,33 +333,45 @@ def _dykstra_run(x, p, q, n_steps: int, chunk: int, tol, cp: str, ns_iter: int):
     read on the host, and the run ends once it is not above `tol` (`tol`
     None: never read, all `n_steps` run). The 'eigh' engine steps in bloch
     space; the 'ns' engine steps on the matrices and maps back at the end.
-    Returns (x, p, q, crit) in bloch space. Its span `qt.dykstra` counts
-    the steps run (`iters`)."""
+    Where `_graph_route` holds, each 'eigh' step is a replay of the step
+    captured as a CUDA graph (`_StepGraph`), with the same arithmetic and
+    the same reads. Returns (x, p, q, crit) in bloch space. Its span
+    `qt.dykstra` counts the steps run (`iters`), those of them replayed
+    (`graph`, 0 on the eager routes) and the graphs captured
+    (`captures`)."""
     with profiling.span("qt.dykstra", x.device):
+        profiling.count("graph", 0)
+        crit = torch.full((), math.inf, dtype=x.dtype, device=x.device)
         if cp == "ns":
             n2 = 2 * _n_from_d2(x.shape[-1])
             state = tuple(bloch_to_matrix(v, n2) for v in (x, p, q))
             step = functools.partial(_dykstra_step_mat, ns_iter=ns_iter, scale=1.0 / 2**n2)
-        else:
-            state = (x, p, q)
-            step = _dykstra_step
-        crit = torch.full((), math.inf, dtype=x.dtype, device=x.device)
-        done = 0
-        while done < n_steps:
-            steps = min(chunk, n_steps - done)
-            for _ in range(steps):
-                *state, crit = step(*state)
-            profiling.count("iters", steps)
-            done += chunk
-            if tol is not None:
-                profiling.count("host_sync")
-                with profiling.span("qt.dykstra.read"):
-                    stop = float(crit) <= tol
-                if stop:
-                    break
-        if cp == "ns":
-            state = tuple(matrix_to_bloch(v) for v in state)
-        return (*state, crit)
+            *state, crit = _dykstra_loop(state, step, crit, n_steps, chunk, tol)
+            return (*(matrix_to_bloch(v) for v in state), crit)
+        if _graph_route(x, cp):
+            with _step_graph(x) as graph, torch.no_grad():
+                out = _dykstra_loop(graph.load(x, p, q), graph.step, crit, n_steps, chunk, tol)
+                return tuple(v.clone() for v in out)  # the graph's next run overwrites them
+        return _dykstra_loop((x, p, q), _dykstra_step, crit, n_steps, chunk, tol)
+
+
+def _dykstra_loop(state, step, crit, n_steps: int, chunk: int, tol):
+    """`_dykstra_run`'s loop over `step`, from `state` and the criterion
+    `crit`; returns (*state, crit)."""
+    done = 0
+    while done < n_steps:
+        steps = min(chunk, n_steps - done)
+        for _ in range(steps):
+            *state, crit = step(*state)
+        profiling.count("iters", steps)
+        done += chunk
+        if tol is not None:
+            profiling.count("host_sync")
+            with profiling.span("qt.dykstra.read"):
+                stop = float(crit) <= tol
+            if stop:
+                break
+    return (*state, crit)
 
 
 def _dykstra_chunk(x, p, q, n_steps: int, cp: str = "eigh", ns_iter: int = 19):
@@ -400,6 +417,108 @@ def cptp_project_bloch(
     iteration: it stops at the first iteration whose criterion is not above
     `tol`."""
     return cptp_project_bloch_host(choi_bloch, max_iter, tol, chunk=1, cp=cp)
+
+
+# -- the 'eigh' step as a captured CUDA graph --------------------------------------
+
+#: step graphs kept per card, the least recently used dropped first
+GRAPHS_PER_DEVICE = 8
+
+
+def _graph_route(x, cp: str) -> bool:
+    """Whether `_dykstra_run` replays its steps from a CUDA graph: 'eigh'
+    steps of float32 Choi bloch vectors on the card whose Choi matrices the
+    PSD kernel takes (up to `kernels.PSD_MAX_DIM`, 1-3 qubits), the steps
+    whose CP half `_eigh_psd_mat` sends to `kernels.psd_project`. Such a
+    step is ~45 small operations around one launch, which the card waits
+    for the host to issue; a replay issues them at once. Every other step
+    (the CPU, float64, the 'ns' engine, 4 qubits) runs eagerly."""
+    return (cp == "eigh" and x.device.type == "cuda" and x.dtype == torch.float32
+            and x.numel() > 0 and math.isqrt(x.shape[-1]) <= kernels.PSD_MAX_DIM)
+
+
+def _cp_project_recorded(choi_bloch):
+    """`cp_project_bloch` as a captured step records it: the PSD kernel's
+    launch alone, without the span `qt.psd` and the launch counters, which
+    each replay adds itself (`_StepGraph.step`)."""
+    n2 = 2 * _n_from_d2(choi_bloch.shape[-1])
+    a = bloch_to_matrix(choi_bloch, n2)
+    d = a.shape[-1]
+    return matrix_to_bloch(kernels._psd_launch(a.reshape(-1, d, d).contiguous()).reshape(a.shape))
+
+
+class _StepGraph:
+    """One 'eigh' Dykstra step at one shape, captured as a CUDA graph: the
+    static state (x, p, q), which each replay advances in place, and the
+    step's criterion `crit`. The first step it runs is eager, on a side
+    stream: it warms up every operation (the Pauli bases' upload, cuBLAS's
+    workspace, the kernel's module) before the capture records them on
+    that stream."""
+
+    def __init__(self, like):
+        self.state = tuple(torch.empty_like(like) for _ in range(3))
+        self.graph = None
+        self.crit = None
+
+    def _store(self, values):
+        for buf, v in zip(self.state, values):
+            buf.copy_(v)
+
+    def load(self, x, p, q):
+        """The static state set to (x, p, q)."""
+        self._store((x, p, q))
+        return self.state
+
+    def step(self, x, p, q):
+        """One step from the static state (x, p, q), as `_dykstra_step`
+        counts it: a replay, or the first step and the capture."""
+        if self.graph is None:
+            return self._capture()
+        with profiling.span("qt.psd", x.device):
+            self.graph.replay()
+            profiling.count("launches")
+        kernels._count_launch(kernels.psd_project)
+        profiling.count("graph")
+        return (*self.state, self.crit)
+
+    def _capture(self):
+        device = self.state[0].device
+        with torch.cuda.device(device):
+            main = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                *new, crit = _dykstra_step(*self.state)
+                self._store(new)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the mesh's worker threads drive the other cards meanwhile
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                *new, self.crit = _dykstra_step(*self.state, cp_fn=_cp_project_recorded)
+                self._store(new)
+        self.graph = graph
+        profiling.count("captures")
+        return (*self.state, crit)
+
+
+_graphs_lock = threading.Lock()
+_graphs: dict = {}  # device -> (its lock, {(shape, dtype): _StepGraph}, oldest first)
+
+
+@contextlib.contextmanager
+def _step_graph(x):
+    """The step graph of x's shape and dtype on x's card, created where there
+    is none, held for one run under the card's lock: a run fills its static
+    state, so two threads may not run one graph at once."""
+    with _graphs_lock:
+        lock, graphs = _graphs.setdefault(x.device, (threading.Lock(), collections.OrderedDict()))
+    with lock:
+        key = (tuple(x.shape), x.dtype)
+        graph = graphs.pop(key, None) or _StepGraph(x)
+        graphs[key] = graph
+        while len(graphs) > GRAPHS_PER_DEVICE:
+            graphs.popitem(last=False)
+        yield graph
 
 
 # -- model and linear inversion -----------------------------------------------

@@ -47,7 +47,9 @@ projections by `torch.linalg.eigh`, on `qt.psd`; matrices clipped, on
 `qt.kron.lin.clip`), `clip_kernel` (the matrices of those that
 `make_feasible_bloch` sent to `kernels.psd_clip`; on `qt.kron.lin.clip`
 always, 0 where none went), `iters` (Dykstra
-steps run, on `qt.dykstra`; RrhoR steps run, on `qt.kron.rhor`),
+steps run, on `qt.dykstra`; RrhoR steps run, on `qt.kron.rhor`), `graph`
+and `captures` (on `qt.dykstra`: the steps replayed from the step's CUDA
+graph, 0 on the eager routes, and the graphs captured),
 `resamples` (on `qt.kron.bootstrap`, and on `qt.kron.rhor` the states of
 its batch) and `chunks` (on `qt.kron.bootstrap`).
 

@@ -722,24 +722,90 @@ def test_psd_kernel_matches_plain_and_eigh(cuda, d, batch):
     assert kernels.psd_project.launches == before + 1
 
 
-def test_psd_kernel_once_per_dykstra_step_of_the_three_qubit_interval(cuda, monkeypatch):
-    from quantpy_tpu_torch.tomography import process_core
+def _dykstra_counts():
+    """The counts of the `qt.dykstra` spans of the newest profiler session."""
+    from quantpy_tpu_torch.utils import profiling
 
+    return [s.counts for s in profiling.recorded() if s.name == "qt.dykstra"]
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_psd_kernel_once_per_dykstra_step_of_the_three_qubit_interval(cuda):
     tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 3), input_states="sic", key=55,
                                dtype=torch.float32)
     tmg.experiment(1000, "proj-set")
     tmg.point_estimate("lifp")
-    steps = []
-    step = process_core._dykstra_step
-    monkeypatch.setattr(process_core, "_dykstra_step",
-                        lambda *args: steps.append(1) or step(*args))
     before = kernels.psd_project.launches
     interval = qtt.BootstrapProcessInterval(tmg, n_points=64, cp_engine="eigh", key=3)
-    interval.setup()
+    with _cpu_profile():
+        interval.setup()
     torch.cuda.synchronize()
-    assert len(steps) >= 10
-    assert kernels.psd_project.launches - before == len(steps)
+    steps = sum(c["iters"] for c in _dykstra_counts())
+    assert steps >= 10
+    assert kernels.psd_project.launches - before == steps
     assert bool(torch.isfinite(torch.as_tensor(interval.distances)).all())
+
+
+def _depol3_raw(device, batch, seed):
+    """Unprojected lifp estimates of the 3-qubit depolarizing channel on SIC
+    inputs at 1,000 shots, float32: `batch` multinomial resamples of one
+    experiment, or (batch None) the experiment's own, as its point estimate
+    projects it."""
+    import numpy as np
+
+    from quantpy_tpu_torch.tomography import process_core
+
+    tmg = qtt.ProcessTomograph(qtt.depolarizing(0.1, 3), input_states="sic", key=seed,
+                               dtype=torch.float32)
+    tmg.experiment(1000, "proj-set")
+    counts, *design = tmg._design()
+    if batch is not None:
+        c = counts.double().cpu().numpy()
+        drawn = np.random.default_rng(seed).multinomial(
+            c.sum(-1).astype(np.int64), c / c.sum(-1, keepdims=True), size=(batch,) + c.shape[:-1])
+        counts = torch.as_tensor(drawn, dtype=torch.float32, device=device)
+    return process_core.estimate_lifp_factored(counts, *design, cptp=False)
+
+
+@pytest.mark.parametrize("batch", [64, None])
+def test_dykstra_graph_replays_the_eager_steps(cuda, batch, monkeypatch, record_property):
+    from quantpy_tpu_torch.tomography import process_core
+
+    x = _depol3_raw(cuda, batch, seed=57)
+    zeros = torch.zeros_like(x)
+    tol = process_core.default_cptp_tol(1e-11, x.dtype)
+    assert process_core._graph_route(x, "eigh")
+
+    def run():
+        before = kernels.psd_project.launches
+        with _cpu_profile():
+            out = process_core._dykstra_run(x, zeros, zeros, 2000, 1, tol, "eigh", 19)
+        torch.cuda.synchronize()
+        (counts,) = _dykstra_counts()
+        assert kernels.psd_project.launches - before == counts["iters"]  # one per step
+        return out, counts
+
+    with monkeypatch.context() as m:
+        m.setattr(process_core, "_graph_route", lambda x, cp: False)
+        eager, eager_counts = run()
+    assert eager_counts["graph"] == 0 and "captures" not in eager_counts
+    first, first_counts = run()  # captures, unless an earlier test ran this shape
+    again, again_counts = run()
+    iters = eager_counts["iters"]
+    assert 10 <= iters < 2000
+    assert first_counts["iters"] == iters and first_counts["graph"] >= iters - 1
+    assert first_counts.get("captures", 0) == iters - first_counts["graph"]
+    assert "captures" not in again_counts and again_counts["graph"] == again_counts["iters"] == iters
+    assert again_counts["host_sync"] == eager_counts["host_sync"] == iters
+    errs = [max(float((a - b).abs().max()) for a, b in zip(out, eager)) for out in (first, again)]
+    record_property("max_diff_graph_vs_eager", max(errs))
+    print(f"batch {batch}: {iters} steps; graph vs eager max |diff| {max(errs):.3e} "
+          f"({'bit for bit' if max(errs) == 0 else 'not bit for bit'})")
+    assert max(errs) <= 1e-6
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(first, again))  # clones, not buffers
 
 
 @pytest.mark.parametrize("n, dtype", [(4, torch.float32), (3, torch.float64)])

@@ -100,7 +100,7 @@ def test_dykstra_counts_its_steps_and_reads(monkeypatch):
     (dykstra,) = [s for s in profiling.recorded() if s.name == "qt.dykstra"]
     reads = [s for s in profiling.recorded() if s.name == "qt.dykstra.read"]
     assert 1 < len(steps) < 200
-    assert dykstra.counts == {"iters": len(steps), "host_sync": len(steps)}
+    assert dykstra.counts == {"iters": len(steps), "graph": 0, "host_sync": len(steps)}
     assert len(reads) == len(steps) and all(r.parent == dykstra.id for r in reads)
 
 
